@@ -1,0 +1,225 @@
+"""TGN with node memory: the serving form (eval, no dropout).
+
+Port of ``tempme_tpu/models/tgn.py:33-320,405-466`` in the variant the repo
+ships (``params/tgnn/tgn_uslegis_sampled.msgpack``): GRU memory updater,
+``last`` message aggregator, ``mlp`` message function and
+``graph_attention`` embedding. Every other variant raises, naming ROADMAP
+item A4.
+
+The memory is an explicit ``TGNMemoryState`` carried from step to step, as
+in the JAX package; every step returns a new state and leaves its input
+untouched, so a caller keeps backups by holding references.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..ops.attention import SplitTemporalAttention
+from ..ops.encodings import TimeEncode
+from ..ops.gather import gather_rows
+from ..ops.layers import ConcatMerge
+from ..ops.sampler import Subgraph
+from ..utils.devices import resolve_device
+from .common import Features
+
+
+class TGNMemoryState(NamedTuple):
+    memory: torch.Tensor        # [N, Dm] float32
+    last_update: torch.Tensor   # [N] float32
+    msg_buf: torch.Tensor       # [N, raw_dim] float32 pending raw message
+    msg_ts: torch.Tensor        # [N] float32 pending message timestamp
+    msg_valid: torch.Tensor     # [N] bool
+
+
+def init_memory_state(num_nodes: int, memory_dim: int, raw_dim: int,
+                      device=None) -> TGNMemoryState:
+    dev = resolve_device(device)
+    return TGNMemoryState(
+        memory=torch.zeros((num_nodes, memory_dim), device=dev),
+        last_update=torch.zeros((num_nodes,), device=dev),
+        msg_buf=torch.zeros((num_nodes, raw_dim), device=dev),
+        msg_ts=torch.zeros((num_nodes,), device=dev),
+        msg_valid=torch.zeros((num_nodes,), dtype=torch.bool, device=dev))
+
+
+class TGNAttnLayer(nn.Module):
+    """q = [feat || te(0)], k = [ngh_feat || edge || te(dt)], then a
+    concat-merge back to node_dim."""
+
+    def __init__(self, node_dim: int, edge_dim: int, time_dim: int,
+                 n_head: int):
+        super().__init__()
+        query_dim = node_dim + time_dim
+        d_k = -(-query_dim // n_head)
+        self.attn = SplitTemporalAttention(
+            n_head=n_head, d_model=query_dim, d_k=d_k, d_node=node_dim,
+            d_edge=edge_dim, d_time=time_dim)
+        self.merger = ConcatMerge(query_dim + node_dim, node_dim, node_dim)
+
+    def project_node(self, x):
+        return self.attn.project_node(x)
+
+    def project_edge(self, x):
+        return self.attn.project_edge(x)
+
+    def forward(self, src_feat, src_time_emb, k_nv, v_nv, k_ev, v_ev,
+                ngh_time_emb, mask, explain_weight=None):
+        """src_feat [Bq, Dn], src_time_emb [Bq, 1, Dt]; projected key and
+        value parts [Bq, n, h*dk] -> ([Bq, Dn], attn [Bq, 1, h, n])."""
+        q_node = src_feat[:, None, :]
+        residual = torch.cat([q_node, src_time_emb], dim=-1)
+        out, attn = self.attn(q_node, src_time_emb, residual, k_nv, v_nv,
+                              k_ev, v_ev, ngh_time_emb, mask=mask,
+                              explain_weight=explain_weight)
+        return self.merger(out.squeeze(1), src_feat), attn
+
+
+class TGN(nn.Module):
+    """Weights are made on the CPU from ``seed`` (the global RNG is left as
+    it was), then moved to ``device`` (CUDA unless ``device="cpu"``)."""
+
+    def __init__(self, node_dim: int, edge_dim: int, num_nodes: int,
+                 n_layers: int = 2, n_head: int = 2, message_dim: int = 100,
+                 memory_updater: str = "gru", aggregator: str = "last",
+                 message_function: str = "mlp",
+                 embedding_type: str = "graph_attention", device=None,
+                 seed: int = 0):
+        super().__init__()
+        variant = (memory_updater, aggregator, message_function,
+                   embedding_type)
+        if variant != ("gru", "last", "mlp", "graph_attention"):
+            raise NotImplementedError(
+                f"TGN variant {variant} is not ported yet (ROADMAP item A4)")
+        dev = resolve_device(device)
+        self.node_dim, self.edge_dim = node_dim, edge_dim
+        self.num_nodes, self.n_layers = num_nodes, n_layers
+        self.memory_dim = self.time_dim = node_dim
+        self.raw_message_dim = 2 * self.memory_dim + edge_dim + self.time_dim
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.time_encoder = TimeEncode(self.time_dim)
+            self.attn_layers = nn.ModuleList([
+                TGNAttnLayer(node_dim, edge_dim, self.time_dim, n_head)
+                for _ in range(n_layers)])
+            self.message_mlp = nn.Sequential(
+                nn.Linear(self.raw_message_dim, self.raw_message_dim // 2),
+                nn.ReLU(),
+                nn.Linear(self.raw_message_dim // 2, message_dim))
+            self.memory_updater = nn.GRUCell(message_dim, self.memory_dim)
+            self.affinity_score = ConcatMerge(2 * node_dim, node_dim, 1)
+        self.to(dev)
+        self.eval()
+
+    # -- memory machinery (functional) ---------------------------------
+    def updated_memory(self, state: TGNMemoryState):
+        """Advance the memory rows that hold a pending message through the
+        message MLP and the GRU: (memory, last_update)."""
+        msgs = self.message_mlp(state.msg_buf)
+        new_mem = self.memory_updater(msgs, state.memory)
+        valid = state.msg_valid[:, None]
+        return (torch.where(valid, new_mem, state.memory),
+                torch.where(state.msg_valid, state.msg_ts, state.last_update))
+
+    def _persist_positives(self, state, upd_memory, upd_last_update,
+                           positives) -> TGNMemoryState:
+        is_pos = torch.zeros(self.num_nodes, dtype=torch.bool,
+                             device=positives.device)
+        is_pos[positives.long()] = True
+        take = is_pos & state.msg_valid
+        return state._replace(
+            memory=torch.where(take[:, None], upd_memory, state.memory),
+            last_update=torch.where(take, upd_last_update, state.last_update),
+            msg_valid=state.msg_valid & ~is_pos)
+
+    def _store_messages(self, state, src, tgt, src_emb, tgt_emb, cut_time,
+                        eidx, feats: Features) -> TGNMemoryState:
+        """Raw messages, source side then destination side; the last one per
+        node wins (so the destination side wins for a node in both)."""
+        e_feat = feats.edge[eidx.long()]
+        nodes = torch.cat([src, tgt]).long()
+        t_all = torch.cat([cut_time, cut_time])
+        delta = t_all - state.last_update[nodes]
+        t_enc = self.time_encoder(delta[:, None]).reshape(len(nodes), -1)
+        msgs = torch.cat([torch.cat([src_emb, tgt_emb]),
+                          torch.cat([tgt_emb, src_emb]),
+                          torch.cat([e_feat, e_feat]), t_enc], dim=-1)
+        pos_idx = torch.arange(nodes.shape[0], device=nodes.device)
+        winner = torch.full((self.num_nodes,), -1, dtype=torch.int64,
+                            device=nodes.device).scatter_reduce(
+            0, nodes, pos_idx, "amax")
+        has_msg = winner >= 0
+        w = winner.clamp(min=0)
+        return state._replace(
+            msg_buf=torch.where(has_msg[:, None], msgs[w], state.msg_buf),
+            msg_ts=torch.where(has_msg, t_all[w], state.msg_ts),
+            msg_valid=state.msg_valid | has_msg)
+
+    # -- embedding pyramid ---------------------------------------------
+    def _embed_chain(self, feats: Features, memory, anchors, cut_time,
+                     sub: Subgraph):
+        b = anchors.shape[0]
+        n = sub.nodes[0].shape[1]
+        node_levels = [anchors[:, None]] + list(sub.nodes)
+        combined = feats.node + memory          # memory added to raw features
+        tfeats = []                             # dt per hop vs its parent
+        standard = cut_time[:, None]
+        for t_rec in sub.ts:
+            delta = standard[:, :, None] - t_rec.reshape(b, -1, n)
+            tfeats.append(self.time_encoder(delta.reshape(b, -1)))
+            standard = t_rec
+
+        num_levels = len(node_levels)
+        prev_emb = None
+        for i in range(num_levels - 1):
+            t = num_levels - 1 - i
+            layer = self.attn_layers[i]
+            src_feat = gather_rows(combined, node_levels[t - 1]).reshape(
+                -1, self.node_dim)
+            bq = src_feat.shape[0]
+            src_t = self.time_encoder(
+                torch.zeros((bq, 1), device=src_feat.device))
+            ngh_nodes = node_levels[t]
+            if prev_emb is None:
+                k_tab, v_tab = layer.project_node(combined)
+                k_nv = gather_rows(k_tab, ngh_nodes).reshape(bq, n, -1)
+                v_nv = gather_rows(v_tab, ngh_nodes).reshape(bq, n, -1)
+            else:
+                k_nv, v_nv = layer.project_node(prev_emb.reshape(bq, n, -1))
+            e_raw = gather_rows(feats.edge, sub.eids[t - 1]).reshape(bq, n, -1)
+            k_ev, v_ev = layer.project_edge(e_raw)
+            e_t = tfeats[t - 1].reshape(bq, n, -1)
+            mask = (ngh_nodes == 0).reshape(bq, n)
+            prev_emb, _ = layer(src_feat, src_t, k_nv, v_nv, k_ev, v_ev, e_t,
+                                mask)
+        return prev_emb                          # [B, node_dim]
+
+    # -- public API ------------------------------------------------------
+    def get_node_emb(self, feats: Features, state: TGNMemoryState,
+                     src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
+                     sub_bgd):
+        """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
+        the embeddings, then the positives persisted and the batch's
+        messages stored."""
+        upd_memory, upd_last = self.updated_memory(state)
+        src_emb, tgt_emb, bgd_emb = (
+            self._embed_chain(feats, upd_memory, anchors, cut_time, sub)
+            for anchors, sub in ((src, sub_src), (tgt, sub_tgt),
+                                 (bgd, sub_bgd)))
+        state = self._persist_positives(state, upd_memory, upd_last,
+                                        torch.cat([src, tgt]))
+        state = self._store_messages(state, src, tgt, src_emb, tgt_emb,
+                                     cut_time, eidx, feats)
+        return (src_emb, tgt_emb, bgd_emb), state
+
+    def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
+                 bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd):
+        """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
+        (s, t, b), state = self.get_node_emb(
+            feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
+            sub_bgd)
+        return (self.affinity_score(s, t), self.affinity_score(s, b)), state
+
+    forward = contrast

@@ -1,0 +1,87 @@
+"""Build the CUDA kernels with plain ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` holds one kernel and one ``extern "C"`` launcher that
+takes raw pointers, sizes and a stream and returns ``cudaGetLastError()``.
+No PyTorch header is included, so a source compiles in seconds. A source is
+compiled at first use into ``tempme_tpu_torch/_build/`` (listed in
+``.gitignore``), under a name keyed by the hash of the source and the flags,
+so an edited source is rebuilt and a built one is reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+KERNELS = ("sample_rows", "attend")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every named source that is not built yet, one ``nvcc`` per
+    source, all started together. Returns ``{name: ptxas report}`` for the
+    sources compiled by this call; raises with the compiler's output if any
+    compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build((name,))
+        lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+

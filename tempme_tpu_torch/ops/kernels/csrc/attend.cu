@@ -1,0 +1,125 @@
+// Fused 1-query x n-key attention (eval form), for sm_90a.
+//
+// Replaces the TPU kernel tempme_tpu/ops/pallas/kernels.py (_attend_kernel,
+// entry fused_attend). One row is one (batch x query, head) pair:
+//   s_j = scale * q . k_j, s_j = -1e10 where key j is masked,
+//   p = softmax(s) * explain_weight, out = sum_j p_j v_j,
+// and both out and p are written. k and v are read in the layout the model
+// makes them, [m, n, h, dk], through strides, so the head transpose that
+// fused_attend materialises before its call is never made. The Pallas
+// kernel's 128-row tiles and VMEM padding do not apply and are left out.
+//
+// One warp per row. The lanes split dk, so each key's and value's row is
+// read coalesced; a key's score is a warp-shuffle sum, kept with the
+// probabilities in shared memory (dk + n floats per warp), so any n and dk
+// work.
+//
+// Bound on the H100: bytes. Each k and v element is read once and used for
+// two flops, far below the card's flop-per-byte balance; at the hop level
+// (10,240 rows, n 20, dk 172) k and v alone are 282 MB, about 84 us at
+// 3.35 TB/s. This first version does the score reductions one key at a time;
+// it is simple and right, not yet fast.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__global__ void attend_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const unsigned char* __restrict__ mask,
+                              const float* __restrict__ ew,
+                              int m, int h, int n, int dk, float scale,
+                              float* __restrict__ out,
+                              float* __restrict__ attn) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (r >= static_cast<long long>(m) * h) return;  // warp-uniform
+  const long long mi = r / h;
+  const int hi = static_cast<int>(r % h);
+  float* qs = smem + warp * (dk + n);
+  float* ps = qs + dk;
+
+  const float* qr = q + r * dk;
+  for (int d = lane; d < dk; d += 32) qs[d] = qr[d];
+  __syncwarp();
+
+  const long long kstride = static_cast<long long>(h) * dk;   // key j -> j+1
+  const long long base = mi * n * kstride + static_cast<long long>(hi) * dk;
+  const float* kb = k + base;
+  for (int j = 0; j < n; ++j) {
+    const float* kr = kb + j * kstride;
+    float s = 0.0f;
+    for (int d = lane; d < dk; d += 32) s = fmaf(qs[d], kr[d], s);
+    s = warp_sum(s) * scale;
+    if (lane == 0) {
+      if (mask != nullptr && mask[mi * n + j]) s = -1e10f;
+      ps[j] = s;
+    }
+  }
+  __syncwarp();
+
+  float mx = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+  for (int j = lane; j < n; j += 32) mx = fmaxf(mx, ps[j]);
+  mx = warp_max(mx);
+  float sum = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = expf(ps[j] - mx);
+    ps[j] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  for (int j = lane; j < n; j += 32) {
+    float p = ps[j] / sum;
+    if (ew != nullptr) p *= ew[mi * n + j];
+    ps[j] = p;
+    attn[r * n + j] = p;
+  }
+  __syncwarp();
+
+  const float* vb = v + base;
+  for (int d = lane; d < dk; d += 32) {
+    float acc = 0.0f;
+    for (int j = 0; j < n; ++j) acc = fmaf(ps[j], vb[j * kstride + d], acc);
+    out[r * dk + d] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" int attend_launch(const void* q, const void* k, const void* v,
+                             const void* mask, const void* ew, int m, int h,
+                             int n, int dk, float scale, void* out, void* attn,
+                             void* stream) {
+  const long long rows = static_cast<long long>(m) * h;
+  if (rows > 0) {
+    const size_t smem = sizeof(float) * kWarps * (dk + n);
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(attend_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    }
+    const long long blocks = (rows + kWarps - 1) / kWarps;
+    attend_kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
+        static_cast<const float*>(ew), m, h, n, dk, scale,
+        static_cast<float*>(out), static_cast<float*>(attn));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

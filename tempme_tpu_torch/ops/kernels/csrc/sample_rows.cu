@@ -1,0 +1,123 @@
+// k=1 temporal neighbour sampling over the CSR adjacency, for sm_90a.
+//
+// Replaces the TPU kernel tempme_tpu/ops/pallas/sample_kernel.py
+// (_sample_rows_kernel, entry sample_rows). The Pallas kernel keeps a dense
+// [N, C] copy of the adjacency in VMEM and fetches rows by one-hot matmuls;
+// here each query reads the CSR directly, so one kernel covers every graph
+// size.
+//
+// One warp per query (node v, cut time t, optional edge id e):
+//   * t = edge_ts[e] when edge ids are given, and the row is forced empty
+//     when v == 0 or e == 0 (the e-path rule of ops/sampler.py cut_by_edge);
+//   * cut = bisect_left of t over ngh_ts[off[v]:off[v+1]] (events strictly
+//     before t), done by every lane on the same addresses;
+//   * pick j = clip(floor(u[j] * cut), 0, cut - 1), with the product rounded
+//     by __fmul_rn so no contraction changes a pick;
+//   * the picks are ranked in shared memory (ties by index), which sorts them
+//     as the reference sorts its picks, and each lane writes (node, eid, ts)
+//     at its pick's rank; all zeros where cut == 0.
+//
+// Bound on the H100: bytes. Per query it reads two offsets, about
+// log2(degree) timestamps, n draws and 3n table entries, and writes 3n
+// outputs; the arithmetic is negligible. The design keeps the output stores
+// coalesced (lanes write consecutive ranks); the bisect is a chain of
+// dependent loads, which is latency, not bandwidth.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+
+__global__ void sample_rows_kernel(const int* __restrict__ off,
+                                   const int* __restrict__ ngh_node,
+                                   const int* __restrict__ ngh_eid,
+                                   const float* __restrict__ ngh_ts,
+                                   const float* __restrict__ edge_ts,
+                                   const int* __restrict__ nodes,
+                                   const float* __restrict__ times,
+                                   const int* __restrict__ eids,
+                                   const float* __restrict__ u,
+                                   int q, int n, int num_nodes, int num_edges,
+                                   int* __restrict__ out_node,
+                                   int* __restrict__ out_eid,
+                                   float* __restrict__ out_ts) {
+  extern __shared__ int picks_all[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * kWarps + warp;
+  if (qi >= q) return;  // warp-uniform: the whole warp leaves together
+  int* picks = picks_all + warp * n;
+
+  const int v = min(max(nodes[qi], 0), num_nodes - 1);
+  float t;
+  bool force_empty = false;
+  if (eids != nullptr) {
+    const int e = min(max(eids[qi], 0), num_edges - 1);
+    t = edge_ts[e];
+    force_empty = (v == 0) || (e == 0);
+  } else {
+    t = times[qi];
+  }
+  const int start = off[v];
+  int lo = start, hi = off[v + 1];
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (ngh_ts[mid] < t) lo = mid + 1; else hi = mid;
+  }
+  const int cut = force_empty ? 0 : lo - start;
+
+  const long long row = static_cast<long long>(qi) * n;
+  for (int j = lane; j < n; j += 32) {
+    int p = 0;
+    if (cut > 0) {
+      const float x = __fmul_rn(u[row + j], __int2float_rn(cut));
+      p = min(max(static_cast<int>(floorf(x)), 0), cut - 1);
+    }
+    picks[j] = p;
+  }
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) {
+    const int p = picks[j];
+    int rank = 0;
+    for (int i = 0; i < n; ++i) {
+      const int o = picks[i];
+      rank += (o < p) || (o == p && i < j);
+    }
+    const long long o = row + rank;
+    if (cut > 0) {
+      const int pos = start + p;
+      out_node[o] = ngh_node[pos];
+      out_eid[o] = ngh_eid[pos];
+      out_ts[o] = ngh_ts[pos];
+    } else {
+      out_node[o] = 0;
+      out_eid[o] = 0;
+      out_ts[o] = 0.0f;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int sample_rows_launch(const void* off, const void* ngh_node,
+                                  const void* ngh_eid, const void* ngh_ts,
+                                  const void* edge_ts, const void* nodes,
+                                  const void* times, const void* eids,
+                                  const void* u, int q, int n, int num_nodes,
+                                  int num_edges, void* out_node, void* out_eid,
+                                  void* out_ts, void* stream) {
+  if (q > 0) {
+    const int blocks = (q + kWarps - 1) / kWarps;
+    const size_t smem = sizeof(int) * kWarps * n;
+    sample_rows_kernel<<<blocks, 32 * kWarps, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(off), static_cast<const int*>(ngh_node),
+        static_cast<const int*>(ngh_eid), static_cast<const float*>(ngh_ts),
+        static_cast<const float*>(edge_ts), static_cast<const int*>(nodes),
+        static_cast<const float*>(times), static_cast<const int*>(eids),
+        static_cast<const float*>(u), q, n, num_nodes, num_edges,
+        static_cast<int*>(out_node), static_cast<int*>(out_eid),
+        static_cast<float*>(out_ts));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
