@@ -94,7 +94,7 @@ def sample_rows_bytes(g, nodes, times, u, eids):
     deg = (g.off[v + 1] - g.off[v]).double()
     probes = torch.ceil(torch.log2(deg + 1)).sum().item()
     per_query = 4 + 4 + 8 + (4 if eids is not None else 0)
-    from tempme_tpu_torch.ops.sampler import cut_by_edge, cut_by_time
+    from tempme_tpu_torch.ops.kernels.sample_rows import cut_by_edge, cut_by_time
     if eids is None:
         _, cut = cut_by_time(g, nodes, times)
     else:
@@ -285,8 +285,7 @@ def serve(ds, step, dev):
     results = {}
     for i, split in enumerate(("train", "val", "test")):
         results[split], mem = T.evaluate_tgn(
-            step, mem, getattr(ds, split), BATCH, seed=SEED + i,
-            return_memory=True)
+            step, mem, getattr(ds, split), BATCH, seed=SEED + i)
     sync(dev)
     return results, mem, time.perf_counter() - t0
 
@@ -321,7 +320,7 @@ def check_against_cpu(ds, step, mem, dev, n_steps=2):
     gen = torch.Generator(device=cpu)
     gen.manual_seed(SEED + 7)
     mem_cpu = to_device(mem, cpu)
-    batches = loops.iter_batches(ds.test, BATCH, False, 0, False, cpu)
+    batches = loops.iter_batches(ds.test, BATCH, False, cpu)
     for _ in range(n_steps):
         batch = next(batches)
         draws = step_cpu.draw(gen, BATCH)
@@ -345,7 +344,7 @@ def profile_steps(ds, step, mem, dev, n_steps=20):
     from tempme_tpu_torch.train import loops
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 9)
-    batches = loops.iter_batches(ds.test, BATCH, False, 0, True, dev)
+    batches = loops.iter_batches(ds.test, BATCH, True, dev)
     work = [(next(batches), step.draw(gen, BATCH)) for _ in range(n_steps)]
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU,

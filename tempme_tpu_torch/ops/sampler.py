@@ -18,8 +18,6 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-# the cut and pick helpers live beside the kernel, as its plain version
-from .kernels.sample_rows import cut_by_edge, cut_by_time  # noqa: F401
 from .kernels.sample_rows import sample_rows
 
 

@@ -47,13 +47,12 @@ def make_tgn_eval_step(model, g_full, feats, dst_table, n) -> TGNEvalStep:
 
 
 def evaluate_tgn(eval_step: TGNEvalStep, mem, events, batch_size: int,
-                 seed: int = 0, draws=None, return_memory: bool = False):
+                 seed: int = 0, draws=None):
     """Score a split in time order, carrying the memory through it (the
     caller's ``mem`` is not modified). ``draws`` is an optional iterable of
     ``SupportDraws``, one per batch; by default they come from a
     ``torch.Generator`` seeded with ``seed`` on the graph's device. Returns
-    ``{"ap", "auc", "acc"}`` (and the new memory with
-    ``return_memory=True``)."""
+    ``({"ap", "auc", "acc"}, new memory)``."""
     dev = eval_step.g.device
     if draws is None:
         gen = torch.Generator(device=dev)
@@ -61,7 +60,7 @@ def evaluate_tgn(eval_step: TGNEvalStep, mem, events, batch_size: int,
         draws = iter(lambda: eval_step.draw(gen, batch_size), None)
     draws = iter(draws)
     scores, masks = [], []
-    for batch in loops.iter_batches(events, batch_size, shuffle=False, seed=0,
+    for batch in loops.iter_batches(events, batch_size,
                                     drop_remainder=False, device=dev):
         pos, neg, mem = eval_step(mem, batch, next(draws))
         scores.append(torch.stack([torch.sigmoid(pos), torch.sigmoid(neg)]))
@@ -73,4 +72,4 @@ def evaluate_tgn(eval_step: TGNEvalStep, mem, events, batch_size: int,
     out = dict(ap=M.average_precision_score(labels, s, m2),
                auc=M.roc_auc_score(labels, s, m2),
                acc=M.accuracy_score(labels, s, mask=m2))
-    return (out, mem) if return_memory else out
+    return out, mem

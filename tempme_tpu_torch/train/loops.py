@@ -78,15 +78,12 @@ def sample_support(g, batch: Batch, dst_table: torch.Tensor, k: int, n: int,
     return bgd, sub_src, sub_tgt, sub_bgd
 
 
-def iter_batches(events, batch_size: int, shuffle: bool, seed: int,
-                 drop_remainder: bool, device):
-    """Fixed-shape batches on ``device``; a final partial batch is padded
-    with event 0 (as in the JAX package) and carries a validity mask. The
-    split is copied to the device once."""
+def iter_batches(events, batch_size: int, drop_remainder: bool, device):
+    """Fixed-shape batches on ``device``, in time order; a final partial
+    batch is padded with event 0 (as in the JAX package) and carries a
+    validity mask. The split is copied to the device once."""
     n = len(events)
     idx = np.arange(n)
-    if shuffle:
-        np.random.RandomState(seed).shuffle(idx)
     if drop_remainder:
         idx = idx[:n - n % batch_size]
     pad = -len(idx) % batch_size

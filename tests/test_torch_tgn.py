@@ -152,7 +152,7 @@ def test_evaluate_tgn_matches_jax():
     tstep = T.make_tgn_eval_step(s.tm, s.tg, s.tfeats, _t(dst_table), n)
     draws = _jax_eval_draws(0, -(-len(split) // bs), bs, n, len(dst_table))
     out, tmem = T.evaluate_tgn(tstep, s.tmem, to_torch_events(split), bs,
-                               draws=draws, return_memory=True)
+                               draws=draws)
     for name in ("ap", "auc", "acc"):
         assert abs(out[name] - ref[name]) <= 1e-6, (name, out, ref)
     _assert_memory_close(tmem, jmem)
