@@ -10,29 +10,44 @@ script
 2. builds the CUDA kernels from ``tempme_tpu_torch/ops/kernels/csrc`` with
    plain ``nvcc`` (all sources at once) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, plus edge probes, and times the kernel,
-   the plain version and, where one exists, one PyTorch library call that
-   computes the same function (a yardstick the port never calls);
+   shapes the serving and training paths give it, plus edge probes, and
+   times the kernel, the plain version and, where one exists, one PyTorch
+   library call that computes the same function (a yardstick the port
+   never calls);
 4. serves TGN link prediction on a wikipedia-shaped stream (9,228 nodes,
    157,474 events, 172-dim features) at the full width of the repo's TGN,
    with seeded random weights: train -> val -> test through
    ``evaluate_tgn`` at batch 256 and 20 neighbours, the memory carried in
-   time order, then checks that both kernels ran 6 times per step and that
-   the card's results agree with the plain path on the CPU for two steps;
-5. prints one JSON line of kernel numbers, the card again, and the last line
+   time order, then checks that both serving kernels ran 6 times per step,
+   traces 20 steps and holds two steps against the plain path on the CPU;
+5. trains the same TGN for one epoch through the entry point a user calls,
+   ``learn_base.main`` on the stream written in the ``ml_{name}`` layout
+   (356 steps at batch 256, dropout 0.1, then val and test), and checks the
+   loss, the APs, the checkpoints and 6 launches per step of each training
+   kernel; stops a second run at a mid-epoch checkpoint and resumes it;
+   holds one train step on the card against the same step on the CPU (same
+   weights, Adam state, memory and draws); traces 20 train steps;
+6. prints one JSON line of kernel numbers, the card again, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
+import contextlib
+import copy
+import glob
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, N_DEGREE, SEED = 256, 20, 0
+DROPOUT, LR = 0.1, 1e-3
+REF_BATCH = 64                      # the card-vs-CPU train step's batch
 H100_BYTES_PER_S = 3.35e12          # published HBM3 rate of the H100 SXM
 H100_F32_OPS_PER_S = 67e12          # float32 outside the tensor cores; also
                                     # taken for the kernels' 32-bit int work
@@ -291,6 +306,8 @@ def serve(ds, step, dev):
 
 
 def to_device(x, dev):
+    if x is None:
+        return None
     if isinstance(x, tuple):
         return type(x)(*(to_device(y, dev) for y in x)) \
             if hasattr(x, "_fields") else tuple(to_device(y, dev) for y in x)
@@ -334,29 +351,26 @@ def check_against_cpu(ds, step, mem, dev, n_steps=2):
                 torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
 
 
-def profile_steps(ds, step, mem, dev, n_steps=20):
-    """Trace ``n_steps`` test batches with ``torch.profiler``: the device's
-    busy share of the window and the kernels that took the most device
-    time. The launches made here are not the serving run's."""
+def profile_steps(run, n_steps=20):
+    """Trace ``n_steps`` calls of ``run(i)`` with ``torch.profiler``: the
+    device's busy share of the window and the kernels that took the most
+    device time. The launches made here count for no path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from tempme_tpu_torch.train import loops
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 9)
-    batches = loops.iter_batches(ds.test, BATCH, True, dev)
-    work = [(next(batches), step.draw(gen, BATCH)) for _ in range(n_steps)]
-    sync(dev)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch, draws in work:
-            _, _, mem = step.step(mem, batch, draws)
-        sync(dev)
+        for i in range(n_steps):
+            run(i)
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, count = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # user annotations (``Optimizer.step#...``) span kernels, not one
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
             count[e.name] = count.get(e.name, 0) + 1
@@ -368,9 +382,366 @@ def profile_steps(ds, step, mem, dev, n_steps=20):
         f" device busy {busy / n_steps / 1e3:.3f} ms/step, idle share "
         f"{1 - busy / wall_us:.3f}, {sum(count.values()) / n_steps:.0f} "
         f"kernels/step")
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         say(f"    {us / n_steps:9.1f} us/step {count[name] / n_steps:5.1f}x "
             f"{name[:90]}")
+
+
+def profile_serving(ds, step, mem, dev, n_steps=20):
+    """20 test batches through the eval step."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    batches = loops.iter_batches(ds.test, BATCH, True, dev)
+    work = [(next(batches), step.draw(gen, BATCH)) for _ in range(n_steps)]
+    state = [mem]
+
+    def run(i):
+        _, _, state[0] = step.step(state[0], *work[i])
+    profile_steps(run, n_steps)
+
+
+def attend_drop_bytes(m, h, n, dk, with_mask, with_ew):
+    """``attend_bytes`` plus the draws u [m, h, n], read once."""
+    return attend_bytes(m, h, n, dk, with_mask, with_ew) + 4 * m * h * n
+
+
+def attend_bwd_bytes(m, h, n, dk, with_mask, with_dattn):
+    """q, dout, k, v, u (and mask, dattn) read once; dq, dk, dv written
+    once."""
+    return 4 * (m * h * dk * 3 + 4 * m * n * h * dk + m * h * n
+                + (m * h * n if with_dattn else 0)) \
+        + (m * n if with_mask else 0)
+
+
+def check_attend_train(torch, dev):
+    """allclose checks and times of the training-form forward and of the
+    backward kernel at the train path's shapes: R = 10,240 rows (hop level)
+    and R = 512 (root), rate 0.1 with injected draws; timed in the main
+    path's form (mask, no explain weight, no cotangent of attn)."""
+    from tempme_tpu_torch.ops.kernels.attend import (
+        attend_bwd, attend_bwd_plain, attend_drop, attend_drop_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    h, n, dk = 2, N_DEGREE, 172
+    scale = 1.0 / dk ** 0.5
+    fwd_rows, bwd_rows, fwd_err, bwd_err = {}, {}, 0.0, 0.0
+    for name, m in (("hop R=10240", BATCH * N_DEGREE), ("root R=512", BATCH)):
+        q = torch.randn((m, h, dk), generator=gen, device=dev)
+        k = torch.randn((m, n, h, dk), generator=gen, device=dev)
+        v = torch.randn((m, n, h, dk), generator=gen, device=dev)
+        mask = torch.rand((m, n), generator=gen, device=dev) < 0.3
+        mask[:3] = True                  # probes: every key masked
+        ew = torch.rand((m, n), generator=gen, device=dev)
+        u = torch.rand((m, h, n), generator=gen, device=dev)
+        dout = torch.randn((m, h, dk), generator=gen, device=dev)
+        dattn = torch.randn((m, h, n), generator=gen, device=dev)
+        for mk, w in ((None, None), (mask, None), (mask, ew)):
+            out, attn = attend_drop(q, k, v, mk, w, u, DROPOUT, scale)
+            ref_out, ref_attn = attend_drop_plain(q, k, v, mk, w, u, DROPOUT,
+                                                  scale)
+            got = attend_bwd(q, k, v, mk, w, u, DROPOUT, scale, dout, dattn)
+            want = attend_bwd_plain(q, k, v, mk, w, u, DROPOUT, scale, dout,
+                                    dattn)
+            torch.cuda.synchronize()
+            for a, b in ((out, ref_out), (attn, ref_attn)):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+                fwd_err = max(fwd_err, (a - b).abs().max().item())
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+                bwd_err = max(bwd_err, (a - b).abs().max().item())
+        if not (attn == 0).any():
+            raise AssertionError("attend_drop: no probability was dropped")
+        if got[1][0].any():              # the last run had the mask
+            raise AssertionError("attend_bwd: an all-masked row's keys got "
+                                 "a gradient")
+        ms, host = time_ms(lambda: attend_drop(q, k, v, mask, None, u,
+                                               DROPOUT, scale))
+        plain, plain_host = time_ms(lambda: attend_drop_plain(
+            q, k, v, mask, None, u, DROPOUT, scale))
+        least, by = bound(attend_drop_bytes(m, h, n, dk, True, False),
+                          m * h * n * (4 * dk + 6))
+        fwd_rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least,
+                              bound_by=by, library_ms=None)
+        say(f"  attend_drop {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, bound {least:.5f} ms ({by}); eager calls from the host "
+            f"{host:.4f} / {plain_host:.4f} ms")
+        ms, host = time_ms(lambda: attend_bwd(q, k, v, mask, None, u,
+                                              DROPOUT, scale, dout))
+        plain, plain_host = time_ms(lambda: attend_bwd_plain(
+            q, k, v, mask, None, u, DROPOUT, scale, dout))
+        # ops: per key the score, dout . v and dq sums (2 dk each), dk and
+        # dv (dk each), and the softmax's backward
+        least, by = bound(attend_bwd_bytes(m, h, n, dk, True, False),
+                          m * h * n * (8 * dk + 12))
+        bwd_rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least,
+                              bound_by=by, library_ms=None)
+        say(f"  attend_bwd {name}: kernel {ms:.4f} ms, plain (autograd of "
+            f"the plain forward) {plain:.4f} ms, bound {least:.5f} ms ({by});"
+            f" eager calls from the host {host:.4f} / {plain_host:.4f} ms")
+    say(f"  attend_drop max abs err vs plain {fwd_err:.3e} (rtol 1e-5, "
+        f"atol 1e-6); attend_bwd {bwd_err:.3e} (rtol 1e-5, atol 1e-5: its "
+        f"sums run over up to n * dk terms)")
+    return fwd_rows, bwd_rows, fwd_err, bwd_err
+
+
+DATA_NAME = "wikishape"
+
+
+def write_stream(ds_dir):
+    """The wikipedia-shaped stream in the ``ml_{name}`` CSV/NPY layout
+    that ``load_dataset`` reads."""
+    import numpy as np
+    from tempme_tpu_torch.data.synthetic import make_large_shaped
+    ev, node_feat, edge_feat = make_large_shaped("wikipedia")
+    table = np.stack([np.arange(len(ev)), ev.src, ev.dst, ev.ts, ev.label,
+                      ev.e_idx], axis=1).astype(np.float64)
+    np.savetxt(os.path.join(ds_dir, f"ml_{DATA_NAME}.csv"), table,
+               fmt=["%d", "%d", "%d", "%.9g", "%.9g", "%d"], delimiter=",",
+               header="index,u,i,ts,label,idx", comments="")
+    np.save(os.path.join(ds_dir, f"ml_{DATA_NAME}.npy"), edge_feat)
+    np.save(os.path.join(ds_dir, f"ml_{DATA_NAME}_node.npy"), node_feat)
+
+
+def train_argv(ds_dir, out, *extra):
+    return ["--data", DATA_NAME, "--data_dir", ds_dir, "--base_type", "tgn",
+            "--bs", str(BATCH), "--n_degree", str(N_DEGREE), "--n_epoch", "1",
+            "--drop_out", str(DROPOUT), "--lr", str(LR), "--seed", str(SEED),
+            "--out_dir", os.path.join(out, "params"),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def read_metrics(out):
+    """{tag: [values in step order]} from the driver's metrics.jsonl."""
+    (path,) = glob.glob(os.path.join(out, "tb", "*", "metrics.jsonl"))
+    tags = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            tags.setdefault(rec["tag"], []).append((rec["step"],
+                                                    rec["value"]))
+    return {k: [v for _, v in sorted(x)] for k, x in tags.items()}
+
+
+def check_launches(launches, want):
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+
+
+def train(ds, ds_dir, out, torch):
+    """One epoch of ``learn_base.main`` at full width on the card, the main
+    path of this slice. Returns (launches, steps, numbers)."""
+    import math
+    from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
+                                                     attend_drop)
+    from tempme_tpu_torch.ops.kernels.sample_rows import sample_rows
+    from tempme_tpu_torch.train import learn_base
+    kernels = {"sample_rows": sample_rows, "attend": attend,
+               "attend_drop": attend_drop, "attend_bwd": attend_bwd}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    test_ap = learn_base.main(train_argv(ds_dir, out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    train_steps = len(ds.train) // BATCH
+    eval_steps = math.ceil(len(ds.val) / BATCH) + math.ceil(
+        len(ds.test) / BATCH)
+    want = {"sample_rows": 6 * (train_steps + eval_steps),
+            "attend": 6 * eval_steps, "attend_drop": 6 * train_steps,
+            "attend_bwd": 6 * train_steps}
+    say(f"  launches on the training path: {launches} for {train_steps} "
+        f"train and {eval_steps} eval steps")
+    check_launches(launches, want)
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != train_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError("a train loss is missing or not finite")
+    tenth = max(1, train_steps // 10)
+    first, last = (sum(x) / len(x) for x in (losses[:tenth],
+                                              losses[-tenth:]))
+    eps = tags["Train/events_per_s"][0]
+    val_ap, test_ap_logged = tags["Val/ap"][0], tags["Test/ap"][0]
+    for name, ap in (("val", val_ap), ("test", test_ap)):
+        if not 0.0 <= ap <= 1.0:
+            raise AssertionError(f"{name} AP {ap} outside [0, 1]")
+    if test_ap != test_ap_logged:
+        raise AssertionError("the returned test AP is not the logged one")
+    params = os.path.join(out, "params", f"tgn_{DATA_NAME}.pt")
+    for path in (params, params + ".json", params + ".train_state",
+                 os.path.join(out, "results", f"base_tgn_{DATA_NAME}.json")):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {path}")
+    with open(params + ".json") as f:
+        meta = json.load(f)
+    if (meta["node_dim"], meta["n_degree"], meta["drop_out"]) != (
+            172, N_DEGREE, DROPOUT):
+        raise AssertionError(f"checkpoint meta {meta}")
+    numbers = dict(train_ms_per_step=BATCH / eps * 1e3, events_per_s=eps,
+                   loss_first_tenth=first, loss_last_tenth=last,
+                   val_ap=val_ap, test_ap=test_ap, peak_gib=peak / 2 ** 30,
+                   wall_s=wall)
+    say(f"  {train_steps} steps: {numbers['train_ms_per_step']:.3f} ms/step, "
+        f"{eps:.1f} events/s (the driver's epoch clock); mean loss first "
+        f"tenth {first:.6f}, last tenth {last:.6f}; val AP {val_ap:.6f}, "
+        f"test AP {test_ap:.6f}; peak device memory {peak / 2 ** 30:.3f} "
+        f"GiB; main() {wall:.2f} s with loading and eval")
+    if not last < first:
+        raise AssertionError("the loss did not fall over the epoch")
+    return launches, train_steps, numbers
+
+
+def resume(ds_dir, out):
+    """A run with ``--ckpt_every_steps 100`` stopped right after its first
+    mid-epoch checkpoint, then ``--resume``d to the end of the epoch."""
+    from tempme_tpu_torch.train import learn_base, learn_tgn
+
+    class Stopped(Exception):
+        pass
+
+    save = learn_tgn.save_checkpoint
+
+    def stopping_save(path, blob, meta=None):
+        save(path, blob, meta=meta)
+        if meta and meta.get("step", -1) >= 0:
+            raise Stopped()
+
+    argv = train_argv(ds_dir, out, "--ckpt_every_steps", "100")
+    learn_tgn.save_checkpoint = stopping_save
+    try:
+        learn_base.main(argv)
+        raise AssertionError("the run did not stop at its checkpoint")
+    except Stopped:
+        pass
+    finally:
+        learn_tgn.save_checkpoint = save
+    state = os.path.join(out, "params", f"tgn_{DATA_NAME}.pt.train_state")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if (meta["epoch"], meta["step"]) != (0, 100):
+        raise AssertionError(f"mid-epoch checkpoint meta {meta}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ap = learn_base.main(argv + ["--resume"])
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    if "at epoch 0 step 100" not in printed.getvalue():
+        raise AssertionError("the second run did not resume at step 100")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if meta["epoch"] != 0 or "step" in meta or not 0.0 <= ap <= 1.0:
+        raise AssertionError(f"the resumed run did not finish: {meta}")
+
+
+def train_steps_on(dev, ds, blob):
+    """The train step of the trained checkpoint ``blob`` on ``dev``: model,
+    Adam state and memory loaded, train graph and features on ``dev``."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.tgn import TGN, TGNMemoryState
+    from tempme_tpu_torch.train import learn_tgn as T
+    g = build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    model = TGN(ds.node_feat.shape[1], ds.edge_feat.shape[1],
+                ds.full.num_nodes, n_layers=2, n_head=2, dropout=DROPOUT,
+                device=dev)
+    model.load_state_dict(blob["params"])
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    opt.load_state_dict(copy.deepcopy(blob["opt_state"]))  # Adam updates
+                                                           # it in place
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    step = T.make_tgn_train_step(model, g, feats,
+                                 torch.from_numpy(dst).to(dev), N_DEGREE, opt)
+    mem = TGNMemoryState(**{k: v.to(dev) for k, v in blob["memory"].items()})
+    return step, mem
+
+
+def check_train_against_cpu(ds, out, dev):
+    """One train step at full width (batch 64) on the card and on the CPU
+    from the trained checkpoint, with the same draws (dropout 0.1
+    included). Returns the card's step and memory for the trace."""
+    import numpy as np
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", f"tgn_{DATA_NAME}.pt.train_state"), map_location="cpu")
+    cpu = torch.device("cpu")
+    step_c, mem_c = train_steps_on(cpu, ds, blob)
+    step_g, mem_g = train_steps_on(dev, ds, blob)
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, REF_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 3)
+    draws = step_c.draw(gen, REF_BATCH)
+    new_c, aux_c = step_c(mem_c, batch, draws)
+    new_g, aux_g = step_g(mem_g, to_device(batch, dev),
+                          to_device(draws, dev))
+    torch.cuda.synchronize()
+    loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
+    if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
+        raise AssertionError(f"loss {loss_g} on the card, {loss_c} on CPU")
+    worst_g, worst_p, unsettled = 0.0, 0.0, 0
+    params_c = dict(step_c.model.named_parameters())
+    for name, p in step_g.model.named_parameters():
+        pc = params_c[name]
+        g_c, g_g = pc.grad, p.grad.cpu()
+        top = g_c.abs().max().item()
+        torch.testing.assert_close(g_g, g_c, rtol=1e-3, atol=1e-4 * top,
+                                   msg=lambda m: f"{name} grad: {m}")
+        worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
+                                                                    1e-30))
+        # Adam turns gradients that are round-off (terms that cancel in
+        # exact arithmetic) into steps of up to lr; hold the rest tightly
+        settled = g_c.abs() >= 1e-4 * top
+        unsettled += int((~settled).sum())
+        diff = (p.detach().cpu() - pc.detach()).abs()
+        if diff.max().item() > LR * 1.001:
+            raise AssertionError(f"{name}: params after Adam differ by "
+                                 f"{diff.max().item()}")
+        torch.testing.assert_close(p.detach().cpu()[settled],
+                                   pc.detach()[settled], rtol=1e-5,
+                                   atol=1e-6,
+                                   msg=lambda m: f"{name} param: {m}")
+        worst_p = max(worst_p, diff[settled].max().item()
+                      if settled.any() else 0.0)
+    for name, a, b in zip(new_c._fields, new_g, new_c):
+        if a.dtype == torch.bool:
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"memory {name} differs from the CPU")
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+    say(f"  loss {loss_g:.7f} card, {loss_c:.7f} CPU; worst gradient error "
+        f"{worst_g:.3e} of its tensor's largest; worst settled param "
+        f"error after Adam {worst_p:.3e} ({unsettled} round-off-gradient "
+        f"entries held to lr); memory agrees")
+    return step_g, new_g
+
+
+def profile_training(ds, step, mem, dev, n_steps=20):
+    """20 train steps at batch 256 from the checkpoint's state."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    batches = loops.stack_batches(ds.train, BATCH, True, SEED + 2, dev)
+    work = [(loops.Batch(*(x[i] for x in batches)), step.draw(gen, BATCH))
+            for i in range(n_steps)]
+    state = [mem]
+
+    def run(i):
+        state[0], _ = step(state[0], *work[i])
+    profile_steps(run, n_steps)
 
 
 def main():
@@ -420,21 +791,22 @@ def main():
     say("[kernels] each kernel against its plain version on the card")
     sr_rows, sr_err = check_sample_rows(g, torch, dev)
     at_rows, at_err = check_attend(torch, dev)
+    drop_rows, bwd_rows, drop_err, bwd_err = check_attend_train(torch, dev)
 
     say("[serve] train -> val -> test, memory carried in time order, "
         f"batch {BATCH}, {N_DEGREE} neighbours")
     sample_rows.launches = 0
     attend.launches = 0
     results, mem, wall = serve(ds, step, dev)
-    launches = {"sample_rows": sample_rows.launches,
-                "attend": attend.launches}
+    serve_launches = {"sample_rows": sample_rows.launches,
+                      "attend": attend.launches}
     events = len(ds.train) + len(ds.val) + len(ds.test)
     say(f"  {step.steps} steps, {events} events in {wall:.3f} s: "
         f"{wall / step.steps * 1e3:.3f} ms/step, {events / wall:.1f} events/s")
     for split, r in results.items():
         say(f"  {split}: AP {r['ap']:.6f}, AUC {r['auc']:.6f}, "
             f"acc {r['acc']:.6f}")
-    say(f"  launches on the serving path: {launches}")
+    say(f"  launches on the serving path: {serve_launches}")
     if not bool(step.finite):
         raise AssertionError("a logit was not finite")
     if not all(bool(torch.isfinite(x).all()) for x in mem
@@ -443,27 +815,65 @@ def main():
     for split, r in results.items():
         if not 0.0 <= r["ap"] <= 1.0:
             raise AssertionError(f"{split} AP {r['ap']} outside [0, 1]")
-    for name, count in launches.items():
+    for name, count in serve_launches.items():
         if count != 6 * step.steps:
             raise AssertionError(f"{name}: {count} launches for "
                                  f"{step.steps} steps (want 6 per step)")
 
     say("[trace] torch.profiler over 20 test steps (not counted above)")
-    profile_steps(ds, step, mem, dev)
+    profile_serving(ds, step, mem, dev)
 
     say("[reference] two test steps on the card against the plain path on "
         "the CPU (rtol 2e-4, atol 1e-5)")
     check_against_cpu(ds, step, mem, dev)
     say("  logits and memory agree")
+    del step, eval_step, g, mem
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        ds_dir = os.path.join(work, "data")
+        os.makedirs(ds_dir)
+        t0 = time.perf_counter()
+        write_stream(ds_dir)
+        say(f"[train] learn_base.main on the stream in the ml_{DATA_NAME} "
+            f"layout (written in {time.perf_counter() - t0:.2f} s): one "
+            f"epoch, batch {BATCH}, {N_DEGREE} neighbours, dropout "
+            f"{DROPOUT}, Adam lr {LR}, width 172")
+        launches, train_steps, numbers = train(ds, ds_dir,
+                                               os.path.join(work, "train"),
+                                               torch)
+        say("[resume] --ckpt_every_steps 100: stopped after the first "
+            "mid-epoch checkpoint, then --resume to the end of the epoch")
+        t0 = time.perf_counter()
+        resume(ds_dir, os.path.join(work, "resume"))
+        say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s "
+            f"for both runs")
+        say(f"[train-reference] one train step (batch {REF_BATCH}, width "
+            f"172, dropout {DROPOUT}) on the card against the CPU from the "
+            "trained checkpoint: loss rtol 1e-4; gradients rtol 1e-3, atol "
+            "1e-4 of the tensor's largest; params after Adam rtol 1e-5, "
+            "atol 1e-6; memory rtol 2e-4, atol 1e-5")
+        step_g, mem_g = check_train_against_cpu(
+            ds, os.path.join(work, "train"), dev)
+    say("[trace-train] torch.profiler over 20 train steps at batch "
+        f"{BATCH} (not counted above)")
+    profile_training(ds, step_g, mem_g, dev)
+    say(f"  training cell: {json.dumps(numbers)}")
 
     kernels = []
+    csrc = "tempme_tpu_torch/ops/kernels/csrc/"
     for name, src, replaces, rows, err in (
-            ("sample_rows", "tempme_tpu_torch/ops/kernels/csrc/sample_rows.cu",
+            ("sample_rows", csrc + "sample_rows.cu",
              "tempme_tpu/ops/pallas/sample_kernel.py:126",
              sr_rows["hop1 Q=5120"], sr_err),
-            ("attend", "tempme_tpu_torch/ops/kernels/csrc/attend.cu",
+            ("attend", csrc + "attend.cu",
              "tempme_tpu/ops/pallas/kernels.py:110",
-             at_rows["hop R=10240"], at_err)):
+             at_rows["hop R=10240"], at_err),
+            ("attend_drop", csrc + "attend.cu",
+             "tempme_tpu/ops/pallas/kernels.py:125",
+             drop_rows["hop R=10240"], drop_err),
+            ("attend_bwd", csrc + "attend_bwd.cu",
+             "tempme_tpu/ops/pallas/kernels.py:229,247",
+             bwd_rows["hop R=10240"], bwd_err)):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": rows["ms"],

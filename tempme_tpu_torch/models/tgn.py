@@ -1,4 +1,4 @@
-"""TGN with node memory: the serving form (eval, no dropout).
+"""TGN with node memory, in serving and training form.
 
 Port of ``tempme_tpu/models/tgn.py:33-320,405-466`` in the variant the repo
 ships (``params/tgnn/tgn_uslegis_sampled.msgpack``): GRU memory updater,
@@ -8,19 +8,28 @@ item A4.
 
 The memory is an explicit ``TGNMemoryState`` carried from step to step, as
 in the JAX package; every step returns a new state and leaves its input
-untouched, so a caller keeps backups by holding references.
+untouched, so a caller keeps backups by holding references. A training step
+must detach the returned state before the next step (the stored messages
+are already cut from the graph, as the JAX package's ``stop_gradient``
+does).
+
+Training mode is the dropout draws: ``contrast(..., drop=...)`` takes one
+``AttnDraws`` per attention call (``dropout_shapes`` gives their shapes);
+without them the model is the eval form. The layers start from the JAX
+package's initialisers, and the GRU is flax's cell (no bias on the reset
+and update gates' recurrent terms), so trained weights stay comparable.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 from torch import nn
 
-from ..ops.attention import SplitTemporalAttention
+from ..ops.attention import AttnDraws, SplitTemporalAttention
 from ..ops.encodings import TimeEncode
 from ..ops.gather import gather_rows
-from ..ops.layers import ConcatMerge
+from ..ops.layers import ConcatMerge, dense, lecun_normal_
 from ..ops.sampler import Subgraph
 from ..utils.devices import resolve_device
 from .common import Features
@@ -45,18 +54,50 @@ def init_memory_state(num_nodes: int, memory_dim: int, raw_dim: int,
         msg_valid=torch.zeros((num_nodes,), dtype=torch.bool, device=dev))
 
 
+class GRUCell(nn.Module):
+    """flax's ``GRUCell``: r = sigmoid(W_ir x + b_ir + W_hr h), z likewise,
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), h' = (1 - z) n + z h.
+    Unlike ``torch.nn.GRUCell`` the recurrent reset and update terms have no
+    bias. ``weight_ih`` stacks (ir, iz, in) and ``weight_hh`` (hr, hz, hn),
+    as ``torch.nn.GRUCell`` does; they start as flax's defaults
+    (``lecun_normal`` input kernels, orthogonal recurrent kernels, zero
+    biases)."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        h = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(3 * h, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * h, h))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * h))
+        self.bias_hn = nn.Parameter(torch.zeros(h))
+        with torch.no_grad():
+            for i in range(3):
+                lecun_normal_(self.weight_ih[i * h:(i + 1) * h])
+                nn.init.orthogonal_(self.weight_hh[i * h:(i + 1) * h])
+
+    def forward(self, x, hx):
+        gi = nn.functional.linear(x, self.weight_ih, self.bias_ih)
+        gh = nn.functional.linear(hx, self.weight_hh)
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * (h_n + self.bias_hn))
+        return (1.0 - z) * n + z * hx
+
+
 class TGNAttnLayer(nn.Module):
     """q = [feat || te(0)], k = [ngh_feat || edge || te(dt)], then a
     concat-merge back to node_dim."""
 
     def __init__(self, node_dim: int, edge_dim: int, time_dim: int,
-                 n_head: int):
+                 n_head: int, dropout: float = 0.0):
         super().__init__()
         query_dim = node_dim + time_dim
         d_k = -(-query_dim // n_head)
         self.attn = SplitTemporalAttention(
             n_head=n_head, d_model=query_dim, d_k=d_k, d_node=node_dim,
-            d_edge=edge_dim, d_time=time_dim)
+            d_edge=edge_dim, d_time=time_dim, dropout=dropout)
         self.merger = ConcatMerge(query_dim + node_dim, node_dim, node_dim)
 
     def project_node(self, x):
@@ -66,14 +107,15 @@ class TGNAttnLayer(nn.Module):
         return self.attn.project_edge(x)
 
     def forward(self, src_feat, src_time_emb, k_nv, v_nv, k_ev, v_ev,
-                ngh_time_emb, mask, explain_weight=None):
+                ngh_time_emb, mask, explain_weight=None,
+                draws: AttnDraws | None = None):
         """src_feat [Bq, Dn], src_time_emb [Bq, 1, Dt]; projected key and
         value parts [Bq, n, h*dk] -> ([Bq, Dn], attn [Bq, 1, h, n])."""
         q_node = src_feat[:, None, :]
         residual = torch.cat([q_node, src_time_emb], dim=-1)
         out, attn = self.attn(q_node, src_time_emb, residual, k_nv, v_nv,
                               k_ev, v_ev, ngh_time_emb, mask=mask,
-                              explain_weight=explain_weight)
+                              explain_weight=explain_weight, draws=draws)
         return self.merger(out.squeeze(1), src_feat), attn
 
 
@@ -82,7 +124,8 @@ class TGN(nn.Module):
     it was), then moved to ``device`` (CUDA unless ``device="cpu"``)."""
 
     def __init__(self, node_dim: int, edge_dim: int, num_nodes: int,
-                 n_layers: int = 2, n_head: int = 2, message_dim: int = 100,
+                 n_layers: int = 2, n_head: int = 2, dropout: float = 0.1,
+                 message_dim: int = 100,
                  memory_updater: str = "gru", aggregator: str = "last",
                  message_function: str = "mlp",
                  embedding_type: str = "graph_attention", device=None,
@@ -96,22 +139,35 @@ class TGN(nn.Module):
         dev = resolve_device(device)
         self.node_dim, self.edge_dim = node_dim, edge_dim
         self.num_nodes, self.n_layers = num_nodes, n_layers
+        self.dropout = dropout
         self.memory_dim = self.time_dim = node_dim
         self.raw_message_dim = 2 * self.memory_dim + edge_dim + self.time_dim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.time_encoder = TimeEncode(self.time_dim)
             self.attn_layers = nn.ModuleList([
-                TGNAttnLayer(node_dim, edge_dim, self.time_dim, n_head)
+                TGNAttnLayer(node_dim, edge_dim, self.time_dim, n_head,
+                             dropout)
                 for _ in range(n_layers)])
             self.message_mlp = nn.Sequential(
-                nn.Linear(self.raw_message_dim, self.raw_message_dim // 2),
+                dense(self.raw_message_dim, self.raw_message_dim // 2),
                 nn.ReLU(),
-                nn.Linear(self.raw_message_dim // 2, message_dim))
-            self.memory_updater = nn.GRUCell(message_dim, self.memory_dim)
+                dense(self.raw_message_dim // 2, message_dim))
+            self.memory_updater = GRUCell(message_dim, self.memory_dim)
             self.affinity_score = ConcatMerge(2 * node_dim, node_dim, 1)
         self.to(dev)
-        self.eval()
+
+    def dropout_shapes(self, batch_size: int, n: int):
+        """The shapes of one side's dropout draws: per attention layer (in
+        the order ``_embed_chain`` runs them, deepest hop first) the
+        probabilities' ``[Bq, h, n]`` and ``fc``'s ``[Bq, 1, d_model]``."""
+        out = []
+        for i in range(self.n_layers):
+            bq = batch_size * n ** (self.n_layers - 1 - i)
+            attn = self.attn_layers[i].attn
+            out.append(((bq, attn.n_head, n),
+                        (bq, 1, self.node_dim + self.time_dim)))
+        return out
 
     # -- memory machinery (functional) ---------------------------------
     def updated_memory(self, state: TGNMemoryState):
@@ -143,6 +199,7 @@ class TGN(nn.Module):
         t_all = torch.cat([cut_time, cut_time])
         delta = t_all - state.last_update[nodes]
         t_enc = self.time_encoder(delta[:, None]).reshape(len(nodes), -1)
+        src_emb, tgt_emb = src_emb.detach(), tgt_emb.detach()
         msgs = torch.cat([torch.cat([src_emb, tgt_emb]),
                           torch.cat([tgt_emb, src_emb]),
                           torch.cat([e_feat, e_feat]), t_enc], dim=-1)
@@ -153,13 +210,14 @@ class TGN(nn.Module):
         has_msg = winner >= 0
         w = winner.clamp(min=0)
         return state._replace(
-            msg_buf=torch.where(has_msg[:, None], msgs[w], state.msg_buf),
+            msg_buf=torch.where(has_msg[:, None], msgs[w].detach(),
+                                state.msg_buf),
             msg_ts=torch.where(has_msg, t_all[w], state.msg_ts),
             msg_valid=state.msg_valid | has_msg)
 
     # -- embedding pyramid ---------------------------------------------
     def _embed_chain(self, feats: Features, memory, anchors, cut_time,
-                     sub: Subgraph):
+                     sub: Subgraph, drop: Sequence[AttnDraws] | None = None):
         b = anchors.shape[0]
         n = sub.nodes[0].shape[1]
         node_levels = [anchors[:, None]] + list(sub.nodes)
@@ -193,21 +251,24 @@ class TGN(nn.Module):
             e_t = tfeats[t - 1].reshape(bq, n, -1)
             mask = (ngh_nodes == 0).reshape(bq, n)
             prev_emb, _ = layer(src_feat, src_t, k_nv, v_nv, k_ev, v_ev, e_t,
-                                mask)
+                                mask, draws=None if drop is None else drop[i])
         return prev_emb                          # [B, node_dim]
 
     # -- public API ------------------------------------------------------
     def get_node_emb(self, feats: Features, state: TGNMemoryState,
                      src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-                     sub_bgd):
+                     sub_bgd, drop=None):
         """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
         the embeddings, then the positives persisted and the batch's
-        messages stored."""
+        messages stored. ``drop``: per side (src, tgt, bgd) one
+        ``AttnDraws`` per layer (training), or None (eval)."""
         upd_memory, upd_last = self.updated_memory(state)
+        drop = drop or (None, None, None)
         src_emb, tgt_emb, bgd_emb = (
-            self._embed_chain(feats, upd_memory, anchors, cut_time, sub)
-            for anchors, sub in ((src, sub_src), (tgt, sub_tgt),
-                                 (bgd, sub_bgd)))
+            self._embed_chain(feats, upd_memory, anchors, cut_time, sub, d)
+            for anchors, sub, d in ((src, sub_src, drop[0]),
+                                    (tgt, sub_tgt, drop[1]),
+                                    (bgd, sub_bgd, drop[2])))
         state = self._persist_positives(state, upd_memory, upd_last,
                                         torch.cat([src, tgt]))
         state = self._store_messages(state, src, tgt, src_emb, tgt_emb,
@@ -215,11 +276,11 @@ class TGN(nn.Module):
         return (src_emb, tgt_emb, bgd_emb), state
 
     def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
-                 bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd):
+                 bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None):
         """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
         (s, t, b), state = self.get_node_emb(
             feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-            sub_bgd)
+            sub_bgd, drop)
         return (self.affinity_score(s, t), self.affinity_score(s, b)), state
 
     forward = contrast

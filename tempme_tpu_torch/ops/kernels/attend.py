@@ -1,15 +1,25 @@
-"""Fused 1-query x n-key attention (eval form): CUDA kernel wrapper and
-plain version.
+"""Fused 1-query x n-key attention: CUDA kernel wrappers, their autograd
+form and their plain versions.
 
-Replaces the TPU kernel ``tempme_tpu/ops/pallas/kernels.py``
-(``_attend_kernel``, entry ``fused_attend``); the kernel is
-``csrc/attend.cu``, whose note gives its design and its bound (bytes).
+Replaces the TPU kernels ``tempme_tpu/ops/pallas/kernels.py``
+``_attend_kernel`` (eval form) and ``_attend_drop_kernel`` (training form),
+entry ``fused_attend``, and their custom VJPs. The forward kernels are
+``csrc/attend.cu``; the backward is ``csrc/attend_bwd.cu``, which
+recomputes the probabilities from the inputs as the JAX VJP does. Each
+source's note gives its design and its bound (bytes).
 
 Per row (batch x query, head): scores ``scale * q . k`` over the n keys,
--1e10 where masked, softmax, times the explain weight; returns the weighted
-value sum and the probabilities. Layouts are the model's: q ``[m, h, dk]``,
-k and v ``[m, n, h, dk]``, mask and explain weight ``[m, n]`` (shared by the
-heads) -> out ``[m, h, dk]``, attn ``[m, h, n]``.
+-1e10 where masked, softmax, in the training form inverted dropout by the
+given uniforms (``u >= rate`` keeps, scaled by ``1 / (1 - rate)``), times
+the explain weight; returns the weighted value sum and the probabilities.
+Layouts are the model's: q ``[m, h, dk]``, k and v ``[m, n, h, dk]``, mask
+and explain weight ``[m, n]`` (shared by the heads), u ``[m, h, n]`` ->
+out ``[m, h, dk]``, attn ``[m, h, n]``.
+
+``attend`` and ``attend_drop`` take the plain version for CPU tensors. For
+CUDA tensors they run the kernel inside one ``torch.autograd.Function``
+whose backward is the ``attend_bwd`` kernel. Each of the three wrappers
+counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -22,16 +32,36 @@ from . import _build
 
 def attend_plain(q, k, v, mask=None, ew=None, scale=1.0):
     """The plain PyTorch version (the JAX package's ``_attend_jnp``)."""
+    return attend_drop_plain(q, k, v, mask, ew, None, 0.0, scale)
+
+
+def attend_drop_plain(q, k, v, mask, ew, u, rate, scale=1.0):
+    """The plain PyTorch version of the training form (the JAX package's
+    ``_attend_drop_jnp``); ``u=None`` is the eval form."""
     scores = torch.einsum("mhd,mnhd->mhn", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], -1e10)
     attn = torch.softmax(scores, dim=-1)
+    if u is not None:
+        attn = torch.where(u >= rate, attn / (1.0 - rate), 0.0)
     if ew is not None:
         attn = attn * ew[:, None, :]
     return torch.einsum("mhn,mnhd->mhd", attn, v), attn
 
 
-def _check(q, k, v, mask, ew):
+def attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout, dattn=None):
+    """(dq, dk, dv) by autograd of the plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out, attn = attend_drop_plain(*leaves, mask, ew, u, rate, scale)
+        outs, cts = [out], [dout]
+        if dattn is not None:
+            outs.append(attn)
+            cts.append(dattn)
+        return torch.autograd.grad(outs, leaves, cts)
+
+
+def _check(q, k, v, mask, ew, u=None):
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("q must be [m, h, dk] and k, v [m, n, h, dk]")
     m, h, dk = q.shape
@@ -39,52 +69,157 @@ def _check(q, k, v, mask, ew):
     if k.shape != (m, n, h, dk) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    for t in (q, k, v, ew):
+    for t in (q, k, v, ew, u):
         if t is not None and t.dtype != torch.float32:
-            raise ValueError("q, k, v and ew must be float32")
+            raise ValueError("q, k, v, ew and u must be float32")
     if mask is not None and (mask.shape != (m, n) or mask.dtype != torch.bool):
         raise ValueError("mask must be a bool [m, n] tensor")
     if ew is not None and ew.shape != (m, n):
         raise ValueError("ew must be a float32 [m, n] tensor")
-    for t in (q, k, v, mask, ew):
+    if u is not None and u.shape != (m, h, n):
+        raise ValueError("u must be a float32 [m, h, n] tensor")
+    for t in (q, k, v, mask, ew, u):
         if t is not None and t.device != q.device:
             raise ValueError("all tensors must be on one device")
         if t is not None and q.device.type == "cuda" and not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-
-
-def attend(q, k, v, mask=None, ew=None, scale=1.0):
-    """(out [m, h, dk], attn [m, h, n]). ``mask`` bool [m, n] (True =
-    masked) or None; ``ew`` float32 [m, n] or None (weight 1). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    _check(q, k, v, mask, ew)
-    if q.device.type == "cpu":
-        return attend_plain(q, k, v, mask, ew, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attend: unsupported device {q.device}")
+    if q.device.type == "cuda" and ew is not None and ew.requires_grad:
+        raise NotImplementedError(
+            "the gradient of the explain weight is not ported yet "
+            "(ROADMAP item A9)")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(q, k, v, mask, ew, u, rate, scale):
+    """Launch the eval-form kernel (``u is None``) or the training-form
+    kernel on the current stream."""
     m, h, dk = q.shape
     n = k.shape[1]
     out = torch.empty((m, h, dk), dtype=torch.float32, device=q.device)
     attn = torch.empty((m, h, n), dtype=torch.float32, device=q.device)
-    err = _lib().attend_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if ew is None else ew.data_ptr(), m, h, n, dk, float(scale),
-        out.data_ptr(), attn.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "attend")
-    attend.launches += 1
+    lib = _lib("attend")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if u is None:
+        err = lib.attend_launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+                                _ptr(ew), m, h, n, dk, float(scale),
+                                out.data_ptr(), attn.data_ptr(), stream)
+        _build.check(err, "attend")
+        attend.launches += 1
+    else:
+        err = lib.attend_drop_launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask),
+                                     _ptr(ew), u.data_ptr(), m, h, n, dk,
+                                     float(scale), float(rate),
+                                     out.data_ptr(), attn.data_ptr(), stream)
+        _build.check(err, "attend_drop")
+        attend_drop.launches += 1
     return out, attn
 
 
+class _Attend(torch.autograd.Function):
+    """The kernel forward; the backward is the ``attend_bwd`` kernel on the
+    saved inputs (nothing else is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, ew, u, rate, scale):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, mask, ew, u)
+        ctx.rate, ctx.scale = rate, scale
+        return _forward(q, k, v, mask, ew, u, rate, scale)
+
+    @staticmethod
+    def backward(ctx, dout, dattn):
+        q, k, v, mask, ew, u = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(q)
+        dq, dk, dv = attend_bwd(
+            q, k, v, mask, ew, u, ctx.rate, ctx.scale, dout.contiguous(),
+            None if dattn is None else dattn.contiguous())
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attend(q, k, v, mask=None, ew=None, scale=1.0):
+    """Eval form: (out [m, h, dk], attn [m, h, n]). ``mask`` bool [m, n]
+    (True = masked) or None; ``ew`` float32 [m, n] or None (weight 1). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (its
+    gradient is the ``attend_bwd`` kernel)."""
+    _check(q, k, v, mask, ew)
+    if q.device.type == "cpu":
+        return attend_plain(q, k, v, mask, ew, scale)
+    return _Attend.apply(q, k, v, mask, ew, None, 0.0, float(scale))
+
+
+def attend_drop(q, k, v, mask, ew, u, rate, scale=1.0):
+    """Training form: ``attend`` with inverted dropout on the probabilities
+    by the uniforms ``u`` float32 [m, h, n], between the softmax and the
+    explain weight."""
+    if u is None:
+        raise ValueError("attend_drop needs the dropout draws u")
+    _check(q, k, v, mask, ew, u)
+    if q.device.type == "cpu":
+        return attend_drop_plain(q, k, v, mask, ew, u, rate, scale)
+    return _Attend.apply(q, k, v, mask, ew, u, float(rate), float(scale))
+
+
+def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None):
+    """(dq [m, h, dk], dk, dv [m, n, h, dk]) of either form for the
+    cotangents ``dout`` [m, h, dk] and ``dattn`` [m, h, n] (or None). CPU
+    tensors take autograd of the plain version; CUDA tensors launch the
+    kernel."""
+    _check(q, k, v, mask, ew, u)
+    for t, shape in ((dout, q.shape), (dattn, q.shape[:2] + k.shape[1:2])):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32
+                              or t.device != q.device):
+            raise ValueError("dout must be [m, h, dk] and dattn [m, h, n], "
+                             "float32, on q's device")
+        if t is not None and q.device.type == "cuda" and \
+                not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+    if q.device.type == "cpu":
+        return attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout,
+                                dattn)
+    m, h, dk = q.shape
+    n = k.shape[1]
+    dq = torch.empty_like(q)
+    dkey = torch.empty_like(k)
+    dval = torch.empty_like(v)
+    err = _lib("attend_bwd").attend_bwd_launch(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(ew), _ptr(u), m, h, n,
+        dk, float(scale), float(rate), _ptr(dout), _ptr(dattn),
+        dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "attend_bwd")
+    attend_bwd.launches += 1
+    return dq, dkey, dval
+
+
 attend.launches = 0
+attend_drop.launches = 0
+attend_bwd.launches = 0
+
+_ARGTYPES = {
+    # q, k, v, mask, ew | m, h, n, dk | scale | out, attn, stream
+    "attend_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    + [ctypes.c_float] + [ctypes.c_void_p] * 3,
+    # q, k, v, mask, ew, u | m, h, n, dk | scale, rate | out, attn, stream
+    "attend_drop_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3,
+    # q, k, v, mask, ew, u | m, h, n, dk | scale, rate |
+    # dout, dattn, dq, dk, dv, stream
+    "attend_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 6,
+}
 
 
-def _lib():
-    lib = _build.load("attend")
-    fn = lib.attend_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float] + [p] * 3
-        fn.restype = ctypes.c_int
+def _lib(name):
+    lib = _build.load(name)
+    for fn_name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib

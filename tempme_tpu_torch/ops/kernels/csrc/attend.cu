@@ -1,13 +1,17 @@
-// Fused 1-query x n-key attention (eval form), for sm_90a.
+// Fused 1-query x n-key attention, eval and training forms, for sm_90a.
 //
-// Replaces the TPU kernel tempme_tpu/ops/pallas/kernels.py (_attend_kernel,
-// entry fused_attend). One row is one (batch x query, head) pair:
+// Replaces the TPU kernels tempme_tpu/ops/pallas/kernels.py _attend_kernel
+// (eval form) and _attend_drop_kernel (training form), entry fused_attend.
+// One row is one (batch x query, head) pair:
 //   s_j = scale * q . k_j, s_j = -1e10 where key j is masked,
-//   p = softmax(s) * explain_weight, out = sum_j p_j v_j,
-// and both out and p are written. k and v are read in the layout the model
-// makes them, [m, n, h, dk], through strides, so the head transpose that
-// fused_attend materialises before its call is never made. The Pallas
-// kernel's 128-row tiles and VMEM padding do not apply and are left out.
+//   p = softmax(s), [training form: p_j = u_j >= rate ? p_j / (1 - rate) : 0],
+//   p *= explain_weight, out = sum_j p_j v_j,
+// and both out and p are written. The training form takes the dropout draws
+// u [m, h, n] from the caller, so the backward (attend_bwd.cu) sees the same
+// mask. k and v are read in the layout the model makes them, [m, n, h, dk],
+// through strides, so the head transpose that fused_attend materialises
+// before its call is never made. The Pallas kernel's 128-row tiles and VMEM
+// padding do not apply and are left out.
 //
 // One warp per row. The lanes split dk, so each key's and value's row is
 // read coalesced; a key's score is a warp-shuffle sum, kept with the
@@ -17,8 +21,9 @@
 // Bound on the H100: bytes. Each k and v element is read once and used for
 // two flops, far below the card's flop-per-byte balance; at the hop level
 // (10,240 rows, n 20, dk 172) k and v alone are 282 MB, about 84 us at
-// 3.35 TB/s. This first version does the score reductions one key at a time;
-// it is simple and right, not yet fast.
+// 3.35 TB/s. The dropout draws add 4 bytes per score. This first version
+// does the score reductions one key at a time; it is simple and right, not
+// yet fast.
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,13 +41,15 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+template <bool kDrop>
 __global__ void attend_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
                               const unsigned char* __restrict__ mask,
                               const float* __restrict__ ew,
+                              const float* __restrict__ u,
                               int m, int h, int n, int dk, float scale,
-                              float* __restrict__ out,
+                              float rate, float* __restrict__ out,
                               float* __restrict__ attn) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
@@ -85,6 +92,7 @@ __global__ void attend_kernel(const float* __restrict__ q,
   sum = warp_sum(sum);
   for (int j = lane; j < n; j += 32) {
     float p = ps[j] / sum;
+    if (kDrop) p = u[r * n + j] >= rate ? p / (1.0f - rate) : 0.0f;
     if (ew != nullptr) p *= ew[mi * n + j];
     ps[j] = p;
     attn[r * n + j] = p;
@@ -99,27 +107,44 @@ __global__ void attend_kernel(const float* __restrict__ q,
   }
 }
 
+template <bool kDrop>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* ew, const void* u, int m, int h, int n, int dk,
+           float scale, float rate, void* out, void* attn, void* stream) {
+  const long long rows = static_cast<long long>(m) * h;
+  if (rows > 0) {
+    const size_t smem = sizeof(float) * kWarps * (dk + n);
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(attend_kernel<kDrop>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    }
+    const long long blocks = (rows + kWarps - 1) / kWarps;
+    attend_kernel<kDrop><<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
+        static_cast<const float*>(ew), static_cast<const float*>(u), m, h, n,
+        dk, scale, rate, static_cast<float*>(out), static_cast<float*>(attn));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int attend_launch(const void* q, const void* k, const void* v,
                              const void* mask, const void* ew, int m, int h,
                              int n, int dk, float scale, void* out, void* attn,
                              void* stream) {
-  const long long rows = static_cast<long long>(m) * h;
-  if (rows > 0) {
-    const size_t smem = sizeof(float) * kWarps * (dk + n);
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(attend_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    }
-    const long long blocks = (rows + kWarps - 1) / kWarps;
-    attend_kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
-        static_cast<const float*>(ew), m, h, n, dk, scale,
-        static_cast<float*>(out), static_cast<float*>(attn));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k, v, mask, ew, nullptr, m, h, n, dk, scale, 0.0f,
+                       out, attn, stream);
+}
+
+extern "C" int attend_drop_launch(const void* q, const void* k, const void* v,
+                                  const void* mask, const void* ew,
+                                  const void* u, int m, int h, int n, int dk,
+                                  float scale, float rate, void* out,
+                                  void* attn, void* stream) {
+  return launch<true>(q, k, v, mask, ew, u, m, h, n, dk, scale, rate, out,
+                      attn, stream);
 }

@@ -1,8 +1,38 @@
-"""Merge head (port of ``tempme_tpu/ops/layers.py`` ``ConcatMerge``)."""
+"""Merge head and the JAX package's initialisers.
+
+Port of ``tempme_tpu/ops/layers.py`` ``ConcatMerge``. Layers start from the
+distributions flax gives them (``tempme_tpu/ops/layers.py``,
+``ops/attention.py``, flax ``Dense`` and ``GRUCell`` defaults), not from
+``torch.nn``'s: ``Dense`` kernels are ``lecun_normal`` (a normal truncated
+at two standard deviations, variance ``1 / fan_in``) with zero biases, the
+merge layers and attention ``fc`` are ``xavier_normal`` with zero biases.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
+
+# flax's truncated normal on [-2, 2] has this standard deviation; lecun_normal
+# divides by it so that the truncated draws keep variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor) -> torch.Tensor:
+    std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+def dense(d_in: int, d_out: int, bias: bool = True, init=lecun_normal_):
+    """``nn.Linear`` started as a flax ``Dense``: ``init`` on the weight
+    (``lecun_normal_`` by default), zero bias."""
+    lin = nn.Linear(d_in, d_out, bias=bias)
+    with torch.no_grad():
+        init(lin.weight)
+        if bias:
+            lin.bias.zero_()
+    return lin
 
 
 class ConcatMerge(nn.Module):
@@ -10,8 +40,8 @@ class ConcatMerge(nn.Module):
 
     def __init__(self, in_dim: int, hidden: int, out: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = dense(in_dim, hidden, init=nn.init.xavier_normal_)
+        self.fc2 = dense(hidden, out, init=nn.init.xavier_normal_)
 
     def forward(self, x1, x2):
         return self.fc2(torch.relu(self.fc1(torch.cat([x1, x2], dim=-1))))

@@ -1,9 +1,10 @@
-"""Batches, padding rules and the per-step support sampling.
+"""Batches, padding rules, the per-step random draws, the train state and
+the loss.
 
-Port of ``tempme_tpu/train/loops.py:22-94,213-238`` for the serving path.
-Random draws are tensors (``SupportDraws``): ``draw_support`` makes them from
-a ``torch.Generator``, and a test can build them from ``jax.random`` in the
-JAX package's split order instead.
+Port of ``tempme_tpu/train/loops.py:22-94,145-161,213-238``. Random draws
+are tensors (``SupportDraws``, ``AttnDraws``): ``draw_support`` and
+``draw_dropout`` make them from a ``torch.Generator``, and a test can build
+them from ``jax.random`` in the JAX package's split order instead.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops import sampler as S
+from ..ops.attention import AttnDraws
 
 
 class Batch(NamedTuple):
@@ -42,6 +45,41 @@ def draw_support(generator: torch.Generator, batch_size: int, k: int, n: int,
     neg = torch.randint(0, num_dst, (batch_size,), generator=generator,
                         device=device)
     return SupportDraws(neg, hops(), hops(), hops())
+
+
+def draw_dropout(generator: torch.Generator, shapes, device):
+    """One side's dropout draws: an ``AttnDraws`` per ``(attn shape, fc
+    shape)`` pair of ``TGN.dropout_shapes``, drawn in that order."""
+    return tuple(AttnDraws(torch.rand(a, generator=generator, device=device),
+                           torch.rand(f, generator=generator, device=device))
+                 for a, f in shapes)
+
+
+class TrainState(NamedTuple):
+    """What a train step updates: the parameters (in the model), the Adam
+    state and the generator of the step's draws."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+
+    def state_dict(self) -> dict:
+        return {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, blob: dict) -> None:
+        self.model.load_state_dict(blob["params"])
+        self.optimizer.load_state_dict(blob["opt_state"])
+        self.generator.set_state(blob["generator"])
+
+
+def masked_bce_with_logits(logits, labels, mask):
+    """BCE on ``logits`` [B, 1] averaged over the valid rows only (padded
+    final batches)."""
+    per = nn.functional.binary_cross_entropy_with_logits(
+        logits.squeeze(-1), labels, reduction="none")
+    m = mask.to(per.dtype)
+    return (per * m).sum() / m.sum().clamp(min=1.0)
 
 
 def mask_batch_nodes(batch: Batch) -> Batch:
@@ -76,6 +114,23 @@ def sample_support(g, batch: Batch, dst_table: torch.Tensor, k: int, n: int,
     sub_tgt = S.find_k_hop(g, draws.u_tgt, batch.dst, batch.ts, k, n, eids=eidx)
     sub_bgd = S.find_k_hop(g, draws.u_bgd, bgd, batch.ts, k, n)
     return bgd, sub_src, sub_tgt, sub_bgd
+
+
+def stack_batches(events, batch_size: int, shuffle: bool, seed: int,
+                  device) -> Batch:
+    """All full batches of an epoch as one ``[K, B]`` Batch on ``device``;
+    the shuffle is numpy's ``RandomState(seed)``, as in the JAX package, so
+    both packages see the same batches."""
+    n = len(events)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(idx)
+    k = n // batch_size
+    idx = idx[:k * batch_size].reshape(k, batch_size)
+    cols = [torch.from_numpy(np.ascontiguousarray(x[idx])).to(device)
+            for x in (events.src, events.dst, events.ts, events.e_idx)]
+    return Batch(*cols, mask=torch.ones((k, batch_size), dtype=torch.bool,
+                                        device=device))
 
 
 def iter_batches(events, batch_size: int, drop_remainder: bool, device):

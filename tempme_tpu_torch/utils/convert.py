@@ -9,10 +9,10 @@ without the outer ``{"params": ...}``). The rules:
 * ``attn_{i}`` becomes ``attn_layers.{i}`` and ``nn.Sequential``'s
   ``layers_{j}`` becomes ``{j}``;
 * flax's ``GRUCell`` has dense layers ``ir``/``iz``/``in`` with bias and
-  ``hr``/``hz`` without (``hn`` has one). ``torch.nn.GRUCell`` gets
-  ``weight_ih = cat(ir, iz, in)^T``, ``bias_ih = cat(b_ir, b_iz, b_in)``,
-  ``weight_hh = cat(hr, hz, hn)^T`` and ``bias_hh = cat(0, 0, b_hn)``. The
-  gate equations then agree (the JAX call is
+  ``hr``/``hz`` without (``hn`` has one). The port's ``models/tgn.py``
+  ``GRUCell`` has the same parameters, stacked: ``weight_ih = cat(ir, iz,
+  in)^T``, ``bias_ih = cat(b_ir, b_iz, b_in)``, ``weight_hh = cat(hr, hz,
+  hn)^T`` and ``bias_hn = b_hn`` (the JAX call is
   ``memory_cell(carry=memory, inputs=msgs)``, the port's
   ``memory_updater(msgs, memory)``).
 """
@@ -31,15 +31,13 @@ def _t(x) -> torch.Tensor:
 def _gru(tree: dict, prefix: str, out: dict) -> None:
     def kern(name):
         return np.asarray(tree[name]["kernel"], np.float32)
-    b_hn = np.asarray(tree["hn"]["bias"], np.float32)
     out[prefix + "weight_ih"] = _t(np.concatenate(
         [kern("ir"), kern("iz"), kern("in")], axis=1).T)
     out[prefix + "bias_ih"] = _t(np.concatenate(
         [tree[g]["bias"] for g in ("ir", "iz", "in")]))
     out[prefix + "weight_hh"] = _t(np.concatenate(
         [kern("hr"), kern("hz"), kern("hn")], axis=1).T)
-    out[prefix + "bias_hh"] = _t(np.concatenate(
-        [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn]))
+    out[prefix + "bias_hn"] = _t(tree["hn"]["bias"])
 
 
 def _module_name(name: str) -> str:

@@ -1,7 +1,8 @@
-"""Evaluation metrics (average precision, ROC-AUC, accuracy) in numpy.
+"""Evaluation metrics (average precision, ROC-AUC, accuracy) in numpy, and
+early stopping.
 
 The port's copy of ``tempme_tpu/utils/metrics.py``: masked, sklearn-equal
-binary AP and AUC, and thresholded accuracy.
+binary AP and AUC, thresholded accuracy and ``EarlyStopMonitor``.
 """
 from __future__ import annotations
 
@@ -68,3 +69,41 @@ def accuracy_score(y_true, y_score, threshold: float = 0.5, mask=None) -> float:
     if len(y_true) == 0:
         return float("nan")
     return float(((y_score > threshold) == (y_true > 0.5)).mean())
+
+
+class EarlyStopMonitor:
+    """Relative-tolerance early stopping (the reference's
+    utils/batch_loader.py:4-29)."""
+
+    def __init__(self, max_round=3, higher_better=True, tolerance=1e-3):
+        self.max_round = max_round
+        self.num_round = 0
+        self.epoch_count = 0
+        self.best_epoch = 0
+        self.last_best = None
+        self.higher_better = higher_better
+        self.tolerance = tolerance
+
+    def state_dict(self) -> dict:
+        return dict(num_round=self.num_round, epoch_count=self.epoch_count,
+                    best_epoch=self.best_epoch, last_best=self.last_best)
+
+    def load_state_dict(self, d: dict) -> None:
+        self.num_round = d["num_round"]
+        self.epoch_count = d["epoch_count"]
+        self.best_epoch = d["best_epoch"]
+        self.last_best = d["last_best"]
+
+    def early_stop_check(self, curr_val: float) -> bool:
+        self.epoch_count += 1
+        if not self.higher_better:
+            curr_val *= -1
+        if self.last_best is None:
+            self.last_best = curr_val
+        elif (curr_val - self.last_best) / abs(self.last_best) > self.tolerance:
+            self.last_best = curr_val
+            self.num_round = 0
+            self.best_epoch = self.epoch_count
+        else:
+            self.num_round += 1
+        return self.num_round >= self.max_round

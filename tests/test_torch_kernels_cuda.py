@@ -1,10 +1,12 @@
-"""Each CUDA kernel against its plain PyTorch version, on the card.
+"""Each CUDA kernel against its plain PyTorch version, on the card, and
+the launches of one train step.
 
 Skipped where there is no CUDA device (the check is made inside the
 fixture, when the test runs). ``sample_rows`` must be bit-identical;
-``attend`` agrees to rtol 1e-5 and atol 1e-6 (float32 sums in another
-order). The file imports neither JAX nor the JAX package; on a machine
-without JAX run it with
+``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol 1e-6 (float32
+sums in another order), ``attend_bwd`` to rtol 1e-5 and atol 1e-5 (its
+sums run over up to n * dk terms). The file imports neither JAX nor the JAX
+package; on a machine without JAX run it with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``.
 """
 import numpy as np
@@ -13,9 +15,17 @@ import torch
 
 from tempme_tpu_torch.data.events import EventStream
 from tempme_tpu_torch.data.graph import build_temporal_graph
-from tempme_tpu_torch.ops.kernels.attend import attend, attend_plain
+from tempme_tpu_torch.models.common import Features
+from tempme_tpu_torch.models.tgn import TGN, init_memory_state
+from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
+                                                 attend_bwd_plain,
+                                                 attend_drop,
+                                                 attend_drop_plain,
+                                                 attend_plain)
 from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
                                                       sample_rows_plain)
+from tempme_tpu_torch.train import learn_tgn as T
+from tempme_tpu_torch.train import loops as L
 
 
 def _events(num_events, num_nodes, seed):
@@ -76,3 +86,98 @@ def test_attend_kernel_matches_plain(cuda, m, h, n, dk):
         assert attend.launches == before + 1
         torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(attn, ref_attn, rtol=1e-5, atol=1e-6)
+
+
+def _attend_inputs(cuda, m, h, n, dk):
+    r = np.random.RandomState(m + n)
+    q, k, v = (torch.from_numpy(r.randn(*s).astype(np.float32)).to(cuda)
+               for s in ((m, h, dk), (m, n, h, dk), (m, n, h, dk)))
+    mask = torch.from_numpy(r.rand(m, n) < 0.3).to(cuda)
+    mask[0] = True
+    ew = torch.from_numpy(r.rand(m, n).astype(np.float32)).to(cuda)
+    u = torch.from_numpy(r.rand(m, h, n).astype(np.float32)).to(cuda)
+    dout = torch.from_numpy(r.randn(m, h, dk).astype(np.float32)).to(cuda)
+    dattn = torch.from_numpy(r.randn(m, h, n).astype(np.float32)).to(cuda)
+    return q, k, v, mask, ew, u, dout, dattn
+
+
+@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (64, 1, 40, 30),
+                                      (5, 3, 1, 7)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_attend_drop_kernel_matches_plain(cuda, m, h, n, dk, rate):
+    q, k, v, mask, ew, u, _, _ = _attend_inputs(cuda, m, h, n, dk)
+    for mk, w in ((mask, ew), (None, None)):
+        before = attend_drop.launches
+        out, attn = attend_drop(q, k, v, mk, w, u, rate, 1.0 / dk ** 0.5)
+        ref_out, ref_attn = attend_drop_plain(q, k, v, mk, w, u, rate,
+                                              1.0 / dk ** 0.5)
+        torch.cuda.synchronize()
+        assert attend_drop.launches == before + 1
+        torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(attn, ref_attn, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (64, 1, 40, 30),
+                                      (5, 3, 1, 7)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attend_bwd_kernel_matches_plain(cuda, m, h, n, dk, rate):
+    q, k, v, mask, ew, u, dout, dattn = _attend_inputs(cuda, m, h, n, dk)
+    u = u if rate else None
+    for mk, w, da in ((mask, ew, dattn), (None, None, None)):
+        before = attend_bwd.launches
+        got = attend_bwd(q, k, v, mk, w, u, rate, 1.0 / dk ** 0.5, dout, da)
+        want = attend_bwd_plain(q, k, v, mk, w, u, rate, 1.0 / dk ** 0.5,
+                                dout, da)
+        torch.cuda.synchronize()
+        assert attend_bwd.launches == before + 1
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_attend_autograd_runs_the_backward_kernel(cuda):
+    q, k, v, mask, ew, u, dout, dattn = _attend_inputs(cuda, 33, 2, 20, 172)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = attend_bwd.launches
+    out, attn = attend_drop(*leaves, mask, ew, u, 0.1, 0.25)
+    grads = torch.autograd.grad((out, attn), leaves,
+                                (dout.transpose(0, 2).contiguous()
+                                 .transpose(0, 2), dattn))
+    want = attend_bwd_plain(q, k, v, mask, ew, u, 0.1, 0.25, dout, dattn)
+    torch.cuda.synchronize()
+    assert attend_bwd.launches == before + 1
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="A9"):
+        attend(q, k, v, mask, ew.clone().requires_grad_())
+
+
+def test_train_step_launches_each_kernel_six_times(cuda):
+    """The port's counterpart of the JAX package's dispatch test: one
+    train step at dropout 0.1 launches the sampler, the training-form
+    attention and its backward 6 times each, and the eval-form attention
+    not at all; one eval step launches the eval form 6 times."""
+    ev = _events(3000, 60, seed=7)
+    g = build_temporal_graph(ev, num_nodes=ev.num_nodes, device=cuda)
+    r = np.random.RandomState(0)
+    feats = Features(
+        torch.from_numpy(r.randn(g.num_nodes, 16).astype(np.float32)).to(cuda),
+        torch.from_numpy(r.randn(g.num_edges, 8).astype(np.float32)).to(cuda))
+    model = TGN(16, 8, g.num_nodes, dropout=0.1, device=cuda)
+    dst = torch.from_numpy(np.unique(ev.dst)).to(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step = T.make_tgn_train_step(model, g, feats, dst, 10, opt)
+    mem = init_memory_state(g.num_nodes, 16, model.raw_message_dim, cuda)
+    batch = next(L.iter_batches(ev, 64, False, cuda))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    kernels = (sample_rows, attend, attend_drop, attend_bwd)
+    before = [f.launches for f in kernels]
+    mem, aux = step(mem, batch, step.draw(gen, 64))
+    torch.cuda.synchronize()
+    assert torch.isfinite(aux["loss"])
+    assert [f.launches - b for f, b in zip(kernels, before)] == [6, 0, 6, 6]
+    eval_step = T.make_tgn_eval_step(model, g, feats, dst, 10)
+    before = [f.launches for f in kernels]
+    eval_step(mem, batch, eval_step.draw(gen, 64))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [6, 6, 0, 0]
