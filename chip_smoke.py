@@ -10,10 +10,11 @@ script
 2. builds the CUDA kernels from ``tempme_tpu_torch/ops/kernels/csrc`` with
    plain ``nvcc`` (all sources at once) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving and training paths give it, plus edge probes, and
-   times the kernel, the plain version and, where one exists, one PyTorch
-   library call that computes the same function (a yardstick the port
-   never calls);
+   shapes the serving, training and explainer paths give it (the walk
+   samplers and ``walk_to_edge`` on inputs captured from the explainer's
+   own sampling and forward), plus edge probes, and times the kernel, the
+   plain version and, where one exists, one PyTorch library call that
+   computes the same function (a yardstick the port never calls);
 4. serves TGN link prediction on a wikipedia-shaped stream (9,228 nodes,
    157,474 events, 172-dim features) at the full width of the repo's TGN,
    with seeded random weights: train -> val -> test through
@@ -27,8 +28,20 @@ script
    kernel; stops a second run at a mid-epoch checkpoint and resumes it;
    holds one train step on the card against the same step on the CPU (same
    weights, Adam state, memory and draws); traces 20 train steps;
-6. prints one JSON line of kernel numbers, the card again, and the last line
+6. trains the TempME explainer for one epoch on the frozen TGN of step 5
+   through ``temp_exp_main.main`` (911 steps at batch 100, 20 neighbours,
+   60 walks a side, then val and test with fidelity and the 16-ratio
+   sweep), checks its numbers, files and the launches of all seven kernels
+   per step; stops a second run at a mid-epoch checkpoint and resumes it;
+   runs ``--eval_only`` on the saved explainer; holds one explainer train
+   step and one eval step's ratio sweep on the card against the CPU
+   (float32, same draws); traces 20 explainer train steps;
+7. prints one JSON line of kernel numbers, the card again, and the last line
    ``{"ok": true, "device": {...}}``.
+
+The TGN runs its projections in bf16, its default (as in the JAX package);
+the card-against-CPU checks run at float32 with the earlier tolerances,
+plus one bf16 serving check with its own looser tolerance.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -49,8 +62,12 @@ BATCH, N_DEGREE, SEED = 256, 20, 0
 DROPOUT, LR = 0.1, 1e-3
 REF_BATCH = 64                      # the card-vs-CPU train step's batch
 H100_BYTES_PER_S = 3.35e12          # published HBM3 rate of the H100 SXM
-H100_F32_OPS_PER_S = 67e12          # float32 outside the tensor cores; also
-                                    # taken for the kernels' 32-bit int work
+H100_F32_OPS_PER_S = 67e12          # float32 outside the tensor cores (an
+                                    # FMA counted as two operations)
+H100_INT32_OPS_PER_S = 67e12 / 4    # 32-bit integer compares, selects and
+                                    # adds: 64 lanes per SM per clock against
+                                    # 128 float32 FMA lanes, each one
+                                    # operation, so a quarter of the above
 
 
 def say(msg):
@@ -119,17 +136,18 @@ def sample_rows_bytes(g, nodes, times, u, eids):
         + q * n * 12
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=H100_F32_OPS_PER_S):
     """(least ms, what bounds it): bytes over the memory rate or operations
-    over the peak rate, whichever takes longer."""
+    over their peak rate (float32 unless given), whichever takes longer."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_sample_rows(g, torch, dev):
-    """Bitwise check and times at the serving shapes: Q = 256 (hop 0,
-    time cut) and Q = 5,120 (hop 1, edge cut from hop 0's picks)."""
+    """Bitwise check and times at the serving shapes, Q = 256 (hop 0,
+    time cut) and Q = 5,120 (hop 1, edge cut from hop 0's picks), and at
+    the explainer's hop 1, Q = 2,000."""
     from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
                                                           sample_rows_plain)
     gen = torch.Generator(device=dev)
@@ -165,13 +183,18 @@ def check_sample_rows(g, torch, dev):
     if not (hop1[0] > 0).any():
         raise AssertionError("sample_rows: hop 1 sampled nothing")
     rows = {}
+    q2 = 100 * N_DEGREE                  # the explainer's hop 1 (batch 100)
     for name, args in (("hop0 Q=256", (nodes0, times0, u0, None)),
-                       ("hop1 Q=5120", (nodes1, times1, u1, eids1))):
+                       ("hop1 Q=5120", (nodes1, times1, u1, eids1)),
+                       ("explain hop1 Q=2000", (nodes1[:q2], times1[:q2],
+                                                u1[:q2], eids1[:q2]))):
         ms, host = time_ms(lambda: sample_rows(g, *args))
         plain, plain_host = time_ms(lambda: sample_rows_plain(g, *args))
         q, n = args[2].shape
-        # ops: n picks, each ranked against the n picks (2 compares)
-        least, by = bound(sample_rows_bytes(g, *args), q * n * (2 * n + 4))
+        # ops: n picks, each ranked against the n picks (2 integer
+        # compares)
+        least, by = bound(sample_rows_bytes(g, *args), q * n * (2 * n + 4),
+                          H100_INT32_OPS_PER_S)
         rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least, bound_by=by)
         say(f"  sample_rows {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {least:.5f} ms ({by}), bitwise equal; eager calls "
@@ -179,15 +202,24 @@ def check_sample_rows(g, torch, dev):
     return rows, err
 
 
-def attend_bytes(m, h, n, dk, with_mask, with_ew):
-    """q, k, v, mask, ew read once; out and attn written once."""
-    return 4 * (m * h * dk * 2 + 2 * m * n * h * dk + m * h * n) \
+def attend_bytes(m, h, n, dk, with_mask, with_ew, elem=4):
+    """q, k, v (``elem`` bytes each), mask, ew read once; out and attn
+    (float32) written once."""
+    return elem * (m * h * dk + 2 * m * n * h * dk) \
+        + 4 * (m * h * dk + m * h * n) \
         + (m * n if with_mask else 0) + (4 * m * n if with_ew else 0)
 
 
+# (row name, rows m) of the attention calls: the serving and training
+# paths' hop level (batch 256 x 20 queries) and root, and the explainer's
+# hop level (batch 100 x 20)
+ATTEND_SHAPES = (("hop m=5120", BATCH * N_DEGREE), ("root m=256", BATCH),
+                 ("explain hop m=2000", 100 * N_DEGREE))
+
+
 def check_attend(torch, dev):
-    """allclose check and times at the serving shapes: R = 10,240 rows
-    (hop level: 5,120 queries x 2 heads) and R = 512 (root)."""
+    """allclose check and times of the eval form at float32 and bf16 q, k,
+    v (the model's default) for ``ATTEND_SHAPES``."""
     import torch.nn.functional as F
     from tempme_tpu_torch.ops.kernels.attend import attend, attend_plain
     gen = torch.Generator(device=dev)
@@ -195,10 +227,12 @@ def check_attend(torch, dev):
     h, n, dk = 2, N_DEGREE, 172
     scale = 1.0 / dk ** 0.5
     rows, worst = {}, 0.0
-    for name, m in (("hop R=10240", BATCH * N_DEGREE), ("root R=512", BATCH)):
-        q = torch.randn((m, h, dk), generator=gen, device=dev)
-        k = torch.randn((m, n, h, dk), generator=gen, device=dev)
-        v = torch.randn((m, n, h, dk), generator=gen, device=dev)
+    for (shape, m), dtype in ((x, d) for x in ATTEND_SHAPES
+                              for d in (torch.float32, torch.bfloat16)):
+        name = f"{shape} {str(dtype)[6:]}"
+        q = torch.randn((m, h, dk), generator=gen, device=dev).to(dtype)
+        k = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+        v = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
         mask = torch.rand((m, n), generator=gen, device=dev) < 0.3
         mask[:3] = True                  # probes: every key masked
         ew = torch.rand((m, n), generator=gen, device=dev)
@@ -221,12 +255,13 @@ def check_attend(torch, dev):
         # are handed over as head-major views of the same storage
         qs, ks, vs = (q[:, :, None, :], k.permute(0, 2, 1, 3),
                       v.permute(0, 2, 1, 3))
-        bias = torch.zeros((m, 1, 1, n), device=dev).masked_fill(
+        bias = torch.zeros((m, 1, 1, n), device=dev, dtype=dtype).masked_fill(
             mask[:, None, None, :], -1e10)
         lib, lib_host = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=bias))
         # ops: two dk-long multiply-adds per key (score, value), softmax
-        least, by = bound(attend_bytes(m, h, n, dk, True, True),
+        least, by = bound(attend_bytes(m, h, n, dk, True, True,
+                                       q.element_size()),
                           m * h * n * (4 * dk + 5))
         rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least, bound_by=by,
                           library_ms=lib)
@@ -314,11 +349,13 @@ def to_device(x, dev):
     return x.to(dev)
 
 
-def check_against_cpu(ds, step, mem, dev, n_steps=2):
-    """Run ``n_steps`` test batches through the served model on ``dev`` and
-    through a CPU copy (plain versions of the kernels) with the same draws
-    and memory; logits and memory must agree (rtol 2e-4, atol 1e-5: float32
-    sums in another order)."""
+def check_against_cpu(ds, step, mem, dev, compute_dtype, rtol, atol,
+                      n_steps=2):
+    """Run ``n_steps`` test batches through the TGN of the served one
+    (same seeded weights) at ``compute_dtype`` on ``dev`` and through a CPU
+    copy (plain versions of the kernels) with the same draws, starting from
+    the served memory; logits and memory must agree to ``rtol`` and
+    ``atol``."""
     import torch
     from tempme_tpu_torch.data.graph import build_temporal_graph
     from tempme_tpu_torch.models.tgn import TGN
@@ -326,29 +363,37 @@ def check_against_cpu(ds, step, mem, dev, n_steps=2):
     from tempme_tpu_torch.train import loops
     cpu = torch.device("cpu")
     s = step.step
-    model_cpu = TGN(node_dim=s.model.node_dim, edge_dim=s.model.edge_dim,
-                    num_nodes=s.model.num_nodes, n_layers=2, n_head=2,
-                    seed=SEED, device=cpu)
+
+    def model_on(d):
+        return TGN(node_dim=s.model.node_dim, edge_dim=s.model.edge_dim,
+                   num_nodes=s.model.num_nodes, n_layers=2, n_head=2,
+                   seed=SEED, device=d, compute_dtype=compute_dtype)
     g_cpu = build_temporal_graph(ds.full, ds.full.num_nodes,
                                  ds.full.num_edges, device=cpu)
-    step_cpu = T.make_tgn_eval_step(model_cpu, g_cpu,
+    step_cpu = T.make_tgn_eval_step(model_on(cpu), g_cpu,
                                     to_device(s.feats, cpu),
                                     s.dst_table.cpu(), N_DEGREE)
+    step_dev = T.make_tgn_eval_step(model_on(dev), s.g, s.feats, s.dst_table,
+                                    N_DEGREE)
     gen = torch.Generator(device=cpu)
     gen.manual_seed(SEED + 7)
     mem_cpu = to_device(mem, cpu)
     batches = loops.iter_batches(ds.test, BATCH, False, cpu)
+    worst = 0.0
     for _ in range(n_steps):
         batch = next(batches)
         draws = step_cpu.draw(gen, BATCH)
         pos_c, neg_c, mem_cpu = step_cpu(mem_cpu, batch, draws)
-        pos, neg, mem = s(mem, to_device(batch, dev), to_device(draws, dev))
+        pos, neg, mem = step_dev(mem, to_device(batch, dev),
+                                 to_device(draws, dev))
         for a, b in ((pos, pos_c), (neg, neg_c)) + tuple(zip(mem, mem_cpu)):
             if a.dtype == torch.bool:
                 if not torch.equal(a.cpu(), b):
                     raise AssertionError("memory flags differ from the CPU")
             else:
-                torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+                torch.testing.assert_close(a.cpu(), b, rtol=rtol, atol=atol)
+                worst = max(worst, (a.cpu() - b).abs().max().item())
+    return worst
 
 
 def profile_steps(run, n_steps=20):
@@ -402,24 +447,31 @@ def profile_serving(ds, step, mem, dev, n_steps=20):
     profile_steps(run, n_steps)
 
 
-def attend_drop_bytes(m, h, n, dk, with_mask, with_ew):
+def attend_drop_bytes(m, h, n, dk, with_mask, with_ew, elem=4):
     """``attend_bytes`` plus the draws u [m, h, n], read once."""
-    return attend_bytes(m, h, n, dk, with_mask, with_ew) + 4 * m * h * n
+    return attend_bytes(m, h, n, dk, with_mask, with_ew, elem) + 4 * m * h * n
 
 
-def attend_bwd_bytes(m, h, n, dk, with_mask, with_dattn):
-    """q, dout, k, v, u (and mask, dattn) read once; dq, dk, dv written
-    once."""
-    return 4 * (m * h * dk * 3 + 4 * m * n * h * dk + m * h * n
-                + (m * h * n if with_dattn else 0)) \
-        + (m * n if with_mask else 0)
+def attend_bwd_bytes(m, h, n, dk, with_mask, with_dattn, elem=4,
+                     with_ew=False):
+    """q, k, v (``elem`` bytes each), dout, u (and mask, dattn, ew) read
+    once; dq, dk, dv (``elem`` bytes) and, with ``with_ew``, dew [m, n]
+    written once."""
+    return elem * (2 * m * h * dk + 4 * m * n * h * dk) \
+        + 4 * (m * h * dk + m * h * n + (m * h * n if with_dattn else 0)) \
+        + (m * n if with_mask else 0) + (8 * m * n if with_ew else 0)
 
 
 def check_attend_train(torch, dev):
     """allclose checks and times of the training-form forward and of the
-    backward kernel at the train path's shapes: R = 10,240 rows (hop level)
-    and R = 512 (root), rate 0.1 with injected draws; timed in the main
-    path's form (mask, no explain weight, no cotangent of attn)."""
+    backward kernel at float32 and bf16 q, k, v for ``ATTEND_SHAPES``, rate
+    0.1 with injected draws; timed in the training path's form (mask, no
+    explain weight, no cotangent of attn). The backward with the explain
+    weight's gradient (the explainer's form: eval form, mask, weight) is
+    timed at the explainer's shape. Returns the rows of the forward, of the
+    backward and the errors; bf16 dq, dk, dv are held to rtol 1e-2, atol
+    1e-4 (one bf16 rounding of values that differ in their last float32
+    digits)."""
     from tempme_tpu_torch.ops.kernels.attend import (
         attend_bwd, attend_bwd_plain, attend_drop, attend_drop_plain)
     gen = torch.Generator(device=dev)
@@ -427,10 +479,12 @@ def check_attend_train(torch, dev):
     h, n, dk = 2, N_DEGREE, 172
     scale = 1.0 / dk ** 0.5
     fwd_rows, bwd_rows, fwd_err, bwd_err = {}, {}, 0.0, 0.0
-    for name, m in (("hop R=10240", BATCH * N_DEGREE), ("root R=512", BATCH)):
-        q = torch.randn((m, h, dk), generator=gen, device=dev)
-        k = torch.randn((m, n, h, dk), generator=gen, device=dev)
-        v = torch.randn((m, n, h, dk), generator=gen, device=dev)
+    for (shape, m), dtype in ((x, d) for x in ATTEND_SHAPES
+                              for d in (torch.float32, torch.bfloat16)):
+        name = f"{shape} {str(dtype)[6:]}"
+        q = torch.randn((m, h, dk), generator=gen, device=dev).to(dtype)
+        k = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+        v = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
         mask = torch.rand((m, n), generator=gen, device=dev) < 0.3
         mask[:3] = True                  # probes: every key masked
         ew = torch.rand((m, n), generator=gen, device=dev)
@@ -441,48 +495,66 @@ def check_attend_train(torch, dev):
             out, attn = attend_drop(q, k, v, mk, w, u, DROPOUT, scale)
             ref_out, ref_attn = attend_drop_plain(q, k, v, mk, w, u, DROPOUT,
                                                   scale)
-            got = attend_bwd(q, k, v, mk, w, u, DROPOUT, scale, dout, dattn)
+            got = attend_bwd(q, k, v, mk, w, u, DROPOUT, scale, dout, dattn,
+                             ew_grad=w is not None)
             want = attend_bwd_plain(q, k, v, mk, w, u, DROPOUT, scale, dout,
-                                    dattn)
+                                    dattn, ew_grad=w is not None)
             torch.cuda.synchronize()
             for a, b in ((out, ref_out), (attn, ref_attn)):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
                 fwd_err = max(fwd_err, (a - b).abs().max().item())
             for a, b in zip(got, want):
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-                bwd_err = max(bwd_err, (a - b).abs().max().item())
+                if a is None:
+                    continue
+                tol = (dict(rtol=1e-2, atol=1e-4) if a.dtype == torch.bfloat16
+                       else dict(rtol=1e-5, atol=1e-5))
+                torch.testing.assert_close(a.float(), b.float(), **tol)
+                if a.dtype == torch.float32:
+                    bwd_err = max(bwd_err, (a - b).abs().max().item())
         if not (attn == 0).any():
             raise AssertionError("attend_drop: no probability was dropped")
         if got[1][0].any():              # the last run had the mask
             raise AssertionError("attend_bwd: an all-masked row's keys got "
                                  "a gradient")
+        elem = q.element_size()
         ms, host = time_ms(lambda: attend_drop(q, k, v, mask, None, u,
                                                DROPOUT, scale))
         plain, plain_host = time_ms(lambda: attend_drop_plain(
             q, k, v, mask, None, u, DROPOUT, scale))
-        least, by = bound(attend_drop_bytes(m, h, n, dk, True, False),
+        least, by = bound(attend_drop_bytes(m, h, n, dk, True, False, elem),
                           m * h * n * (4 * dk + 6))
         fwd_rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least,
                               bound_by=by, library_ms=None)
         say(f"  attend_drop {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
             f"ms, bound {least:.5f} ms ({by}); eager calls from the host "
             f"{host:.4f} / {plain_host:.4f} ms")
-        ms, host = time_ms(lambda: attend_bwd(q, k, v, mask, None, u,
-                                              DROPOUT, scale, dout))
-        plain, plain_host = time_ms(lambda: attend_bwd_plain(
-            q, k, v, mask, None, u, DROPOUT, scale, dout))
-        # ops: per key the score, dout . v and dq sums (2 dk each), dk and
-        # dv (dk each), and the softmax's backward
-        least, by = bound(attend_bwd_bytes(m, h, n, dk, True, False),
-                          m * h * n * (8 * dk + 12))
-        bwd_rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=least,
-                              bound_by=by, library_ms=None)
-        say(f"  attend_bwd {name}: kernel {ms:.4f} ms, plain (autograd of "
-            f"the plain forward) {plain:.4f} ms, bound {least:.5f} ms ({by});"
-            f" eager calls from the host {host:.4f} / {plain_host:.4f} ms")
+        forms = [("", dict(u=u, rate=DROPOUT, w=None, ew_grad=False))]
+        if shape.startswith("explain") and dtype == torch.bfloat16:
+            forms.append((" ew", dict(u=None, rate=0.0, w=ew, ew_grad=True)))
+        for suffix, f in forms:
+            ms, host = time_ms(lambda: attend_bwd(
+                q, k, v, mask, f["w"], f["u"], f["rate"], scale, dout,
+                ew_grad=f["ew_grad"]))
+            plain, plain_host = time_ms(lambda: attend_bwd_plain(
+                q, k, v, mask, f["w"], f["u"], f["rate"], scale, dout,
+                ew_grad=f["ew_grad"]))
+            # ops: per key the score, dout . v and dq sums (2 dk each), dk
+            # and dv (dk each), and the softmax's backward
+            least, by = bound(
+                attend_bwd_bytes(m, h, n, dk, True, False, elem,
+                                 f["ew_grad"]),
+                m * h * n * (8 * dk + 12))
+            bwd_rows[name + suffix] = dict(ms=ms, plain_ms=plain,
+                                           bound_ms=least, bound_by=by,
+                                           library_ms=None)
+            say(f"  attend_bwd {name}{suffix}: kernel {ms:.4f} ms, plain "
+                f"(autograd of the plain forward) {plain:.4f} ms, bound "
+                f"{least:.5f} ms ({by}); eager calls from the host "
+                f"{host:.4f} / {plain_host:.4f} ms")
     say(f"  attend_drop max abs err vs plain {fwd_err:.3e} (rtol 1e-5, "
-        f"atol 1e-6); attend_bwd {bwd_err:.3e} (rtol 1e-5, atol 1e-5: its "
-        f"sums run over up to n * dk terms)")
+        f"atol 1e-6); attend_bwd at float32 {bwd_err:.3e} (rtol 1e-5, atol "
+        f"1e-5: its sums run over up to n * dk terms; the explain weight's "
+        f"gradient too)")
     return fwd_rows, bwd_rows, fwd_err, bwd_err
 
 
@@ -508,7 +580,7 @@ def train_argv(ds_dir, out, *extra):
     return ["--data", DATA_NAME, "--data_dir", ds_dir, "--base_type", "tgn",
             "--bs", str(BATCH), "--n_degree", str(N_DEGREE), "--n_epoch", "1",
             "--drop_out", str(DROPOUT), "--lr", str(LR), "--seed", str(SEED),
-            "--out_dir", os.path.join(out, "params"),
+            "--out_dir", os.path.join(out, "params", "tgnn"),
             "--log_dir", os.path.join(out, "tb"),
             "--results_dir", os.path.join(out, "results"), *extra]
 
@@ -573,7 +645,7 @@ def train(ds, ds_dir, out, torch):
             raise AssertionError(f"{name} AP {ap} outside [0, 1]")
     if test_ap != test_ap_logged:
         raise AssertionError("the returned test AP is not the logged one")
-    params = os.path.join(out, "params", f"tgn_{DATA_NAME}.pt")
+    params = os.path.join(out, "params", "tgnn", f"tgn_{DATA_NAME}.pt")
     for path in (params, params + ".json", params + ".train_state",
                  os.path.join(out, "results", f"base_tgn_{DATA_NAME}.json")):
         if not os.path.exists(path):
@@ -621,7 +693,8 @@ def resume(ds_dir, out):
         pass
     finally:
         learn_tgn.save_checkpoint = save
-    state = os.path.join(out, "params", f"tgn_{DATA_NAME}.pt.train_state")
+    state = os.path.join(out, "params", "tgnn",
+                         f"tgn_{DATA_NAME}.pt.train_state")
     with open(state + ".json") as f:
         meta = json.load(f)
     if (meta["epoch"], meta["step"]) != (0, 100):
@@ -639,9 +712,10 @@ def resume(ds_dir, out):
         raise AssertionError(f"the resumed run did not finish: {meta}")
 
 
-def train_steps_on(dev, ds, blob):
-    """The train step of the trained checkpoint ``blob`` on ``dev``: model,
-    Adam state and memory loaded, train graph and features on ``dev``."""
+def train_steps_on(dev, ds, blob, compute_dtype):
+    """The train step of the trained checkpoint ``blob`` on ``dev`` with the
+    projections in ``compute_dtype``: model, Adam state and memory loaded,
+    train graph and features on ``dev``."""
     import torch
     from tempme_tpu_torch.data.events import RandEdgeSampler
     from tempme_tpu_torch.data.graph import build_temporal_graph
@@ -654,7 +728,7 @@ def train_steps_on(dev, ds, blob):
                      torch.from_numpy(ds.edge_feat).to(dev))
     model = TGN(ds.node_feat.shape[1], ds.edge_feat.shape[1],
                 ds.full.num_nodes, n_layers=2, n_head=2, dropout=DROPOUT,
-                device=dev)
+                device=dev, compute_dtype=compute_dtype)
     model.load_state_dict(blob["params"])
     opt = torch.optim.Adam(model.parameters(), lr=LR)
     opt.load_state_dict(copy.deepcopy(blob["opt_state"]))  # Adam updates
@@ -668,17 +742,18 @@ def train_steps_on(dev, ds, blob):
 
 def check_train_against_cpu(ds, out, dev):
     """One train step at full width (batch 64) on the card and on the CPU
-    from the trained checkpoint, with the same draws (dropout 0.1
-    included). Returns the card's step and memory for the trace."""
+    from the trained checkpoint at float32, with the same draws (dropout
+    0.1 included)."""
     import numpy as np
     import torch
     from tempme_tpu_torch.train import loops
     from tempme_tpu_torch.utils.checkpoint import load_checkpoint
     blob, _ = load_checkpoint(os.path.join(
-        out, "params", f"tgn_{DATA_NAME}.pt.train_state"), map_location="cpu")
+        out, "params", "tgnn", f"tgn_{DATA_NAME}.pt.train_state"),
+        map_location="cpu")
     cpu = torch.device("cpu")
-    step_c, mem_c = train_steps_on(cpu, ds, blob)
-    step_g, mem_g = train_steps_on(dev, ds, blob)
+    step_c, mem_c = train_steps_on(cpu, ds, blob, torch.float32)
+    step_g, mem_g = train_steps_on(dev, ds, blob, torch.float32)
     batch = loops.Batch(*(x[0] for x in loops.stack_batches(
         ds.train, REF_BATCH, True, SEED + 1, cpu)))
     gen = torch.Generator(device=cpu)
@@ -725,13 +800,18 @@ def check_train_against_cpu(ds, out, dev):
         f"{worst_g:.3e} of its tensor's largest; worst settled param "
         f"error after Adam {worst_p:.3e} ({unsettled} round-off-gradient "
         f"entries held to lr); memory agrees")
-    return step_g, new_g
 
 
-def profile_training(ds, step, mem, dev, n_steps=20):
-    """20 train steps at batch 256 from the checkpoint's state."""
+def profile_training(ds, out, dev, n_steps=20):
+    """20 train steps at batch 256 from the checkpoint's state, the
+    projections in bf16 as the driver runs them."""
     import torch
     from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"tgn_{DATA_NAME}.pt.train_state"),
+        map_location="cpu")
+    step, mem = train_steps_on(dev, ds, blob, torch.bfloat16)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
     batches = loops.stack_batches(ds.train, BATCH, True, SEED + 2, dev)
@@ -741,6 +821,556 @@ def profile_training(ds, step, mem, dev, n_steps=20):
 
     def run(i):
         state[0], _ = step(state[0], *work[i])
+    profile_steps(run, n_steps)
+
+
+EXPLAIN_BATCH = 100
+EXPLAIN_RESUME_STEP = 800
+
+
+def union_bytes(g, a, b, e, n):
+    """Bytes one sample_union call must move for these inputs: per query
+    its three ids and the edge time, four offsets and each side's bisect
+    probes (about log2(degree + 1) timestamps where the side is not forced
+    empty), the n draws, 3n table reads where the union is not empty and 4n
+    outputs."""
+    import torch
+    from tempme_tpu_torch.ops.kernels.sample_rows import cut_by_edge
+    live = (e != 0)
+    probes = 0.0
+    for v in (a, b):
+        deg = (g.off[v.long() + 1] - g.off[v.long()]).double()
+        probes += (torch.ceil(torch.log2(deg + 1)) * (live & (v != 0))).sum()
+    total = cut_by_edge(g, a, e)[1] + cut_by_edge(g, b, e)[1]
+    q = a.shape[0]
+    return q * (16 + 16) + 4 * probes.item() + q * n * 4 \
+        + (total > 0).sum().item() * n * 12 + q * n * 16
+
+
+def masked_bytes(g, a, b, e, wildcard, found):
+    """Bytes one sample_masked call must move for these inputs: per query
+    its eight inputs, the edge time and four offsets; wildcard rows the two
+    time bisects' probes (4 bytes each), the others up to six (neighbour,
+    time) bisects' probes (8 bytes each) on the sides that are not empty;
+    one entry of three arrays where a candidate exists; five outputs."""
+    import torch
+    probes = 0.0
+    for v, per_row in ((a, 4), (b, 2)):
+        deg = (g.off[v.long() + 1] - g.off[v.long()]).double()
+        p = torch.ceil(torch.log2(deg + 1)) * ((v != 0) & (e != 0))
+        probes += (p * torch.where(wildcard, 4.0, 8.0 * per_row)).sum()
+    q = a.shape[0]
+    return q * (29 + 4 + 16 + 17) + probes.item() + found.sum().item() * 12
+
+
+def capture_walk_inputs(ds, g, dev):
+    """The walk kernels' inputs on the explainer's main path: one train
+    batch (100 events) sampled through ``sample_explainer_inputs``, with
+    ``sample_union`` and ``sample_masked`` wrapped to record their
+    arguments, and the explainer's ``edge_importance`` with
+    ``walk_to_edge_max`` recorded (side src: hop 0 and hop 1)."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.explain import tempme as E
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.ops import sampler as S
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.train import temp_exp_main as X
+    rec = {"sample_union": [], "sample_masked": [], "walk_to_edge": []}
+    real = {"sample_union": S.sample_union, "sample_masked": S.sample_masked,
+            "walk_to_edge": E.walk_to_edge_max}
+
+    def recorder(name):
+        def call(*args):
+            rec[name].append(args)
+            return real[name](*args)
+        return call
+    dst = torch.from_numpy(RandEdgeSampler([ds.train.src], [ds.train.dst])
+                           .dst_list).to(dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, EXPLAIN_BATCH, True, SEED, dev)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    draws = X.ExplainerDraws(
+        loops.draw_support(gen, EXPLAIN_BATCH, 2, N_DEGREE, dst.shape[0],
+                           dev),
+        tuple(S.draw_walks(gen, EXPLAIN_BATCH, N_DEGREE, X.N_WALK_CONT, dev)
+              for _ in range(3)))
+    explainer = E.TempME(ds.node_feat.shape[1], ds.edge_feat.shape[1],
+                         device=dev, seed=SEED)
+    S.sample_union = recorder("sample_union")
+    S.sample_masked = recorder("sample_masked")
+    E.walk_to_edge_max = recorder("walk_to_edge")
+    try:
+        with torch.no_grad():
+            _, subs, walks = X.sample_explainer_inputs(g, batch, dst,
+                                                       N_DEGREE, draws)
+            imp = explainer(feats, walks[0], batch.ts)
+            explainer.edge_importance(feats, subs[0], imp, walks[0],
+                                      training=False)
+    finally:
+        S.sample_union = real["sample_union"]
+        S.sample_masked = real["sample_masked"]
+        E.walk_to_edge_max = real["walk_to_edge"]
+    return rec
+
+
+def check_walk_kernels(ds, g, torch, dev):
+    """The three walk kernels against their plain versions at the
+    explainer's shapes, on inputs captured from its own sampling and
+    forward: ``sample_union`` at Q = 2,000 x 3 draws and ``sample_masked``
+    at Q = 6,000 bitwise; ``walk_to_edge`` at [100, 180] slots against
+    [100, 20] (hop 0) and [100, 400] (hop 1) targets, the forward exactly
+    and its backward to rtol 1e-5, atol 1e-5 (each slot sums its share over
+    up to T targets, in another order). Returns the rows and the errors."""
+    from tempme_tpu_torch.ops.kernels.sample_masked import (
+        sample_masked, sample_masked_plain)
+    from tempme_tpu_torch.ops.kernels.sample_union import (
+        sample_union, sample_union_plain)
+    from tempme_tpu_torch.ops.kernels.walk_to_edge import (
+        walk_to_edge_bwd, walk_to_edge_fwd, walk_to_edge_plain)
+    rec = capture_walk_inputs(ds, g, dev)
+    rows, errs = {}, {}
+    (ua,) = rec["sample_union"][:1]
+    (ma,) = rec["sample_masked"][:1]
+    for name, kernel, plain, args, nbytes in (
+            ("sample_union", sample_union, sample_union_plain, ua[1:],
+             union_bytes(g, ua[1], ua[2], ua[3], ua[4].shape[1])),
+            ("sample_masked", sample_masked, sample_masked_plain, ma[1:],
+             None)):
+        got, want = kernel(g, *args), plain(g, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version")
+        if not (got[1] > 0).any():
+            raise AssertionError(f"{name} sampled nothing")
+        if nbytes is None:
+            nbytes = masked_bytes(g, args[0], args[1], args[2], args[6],
+                                  got[4])
+        ms, host = time_ms(lambda: kernel(g, *args))
+        plain_ms, plain_host = time_ms(lambda: plain(g, *args))
+        least, by = bound(nbytes, 0)
+        q = args[0].shape[0]
+        found = ""
+        if name == "sample_masked":
+            found = (f", {int(got[4].sum())} of {q} found, "
+                     f"{int(args[6].sum())} wildcard")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
+                          bound_by=by, library_ms=None)
+        errs[name] = 0.0
+        say(f"  {name} Q={q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {least:.5f} ms ({by}), bitwise equal{found}; eager "
+            f"calls from the host {host:.4f} / {plain_host:.4f} ms; no "
+            f"library call (no one PyTorch call samples a temporal CSR)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    fwd_err = bwd_err = 0.0
+    for ids, imp, tgt in rec["walk_to_edge"][:2]:
+        ids, tgt = ids.to(torch.int32), tgt.to(torch.int32)
+        b, s_len = ids.shape
+        t = tgt.shape[1]
+        out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+        ref = walk_to_edge_plain(ids, imp, tgt)
+        ct = torch.randn((b, t), generator=gen, device=dev)
+        g_imp = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
+        with torch.enable_grad():
+            leaf = imp.detach().requires_grad_()
+            (g_ref,) = torch.autograd.grad(
+                walk_to_edge_plain(ids, leaf, tgt), [leaf], ct)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError("walk_to_edge differs from its plain version")
+        torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
+        bwd_err = max(bwd_err, (g_imp - g_ref).abs().max().item())
+        if not (out > 0).any():
+            raise AssertionError("walk_to_edge: no target matched a walk")
+
+        def plain_bwd():
+            with torch.enable_grad():
+                leaf = imp.detach().requires_grad_()
+                return torch.autograd.grad(
+                    walk_to_edge_plain(ids, leaf, tgt), [leaf], ct)
+        # ops: an integer compare, a select and a max per (target, slot);
+        # the backward two compares and an add: bound at the INT32 rate
+        for name, fn, pfn, nbytes, ops in (
+                (f"walk_to_edge T={t}", lambda: walk_to_edge_fwd(ids, imp, tgt),
+                 lambda: walk_to_edge_plain(ids, imp, tgt),
+                 b * s_len * 8 + b * t * 8, 3 * b * t * s_len),
+                (f"walk_to_edge_bwd T={t}",
+                 lambda: walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct),
+                 plain_bwd, b * s_len * 12 + b * t * 8, 3 * b * t * s_len)):
+            ms, host = time_ms(fn)
+            plain_ms, plain_host = time_ms(pfn)
+            least, by = bound(nbytes, ops, H100_INT32_OPS_PER_S)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
+                              bound_by=by, library_ms=None)
+            say(f"  {name} [{b}, {s_len}] slots: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {least:.5f} ms ({by}); eager calls "
+                f"from the host {host:.4f} / {plain_host:.4f} ms; no library "
+                f"call (scatter_reduce amax onto a dense table, then a "
+                f"gather: two calls)")
+    errs["walk_to_edge"], errs["walk_to_edge_bwd"] = fwd_err, bwd_err
+    say(f"  walk_to_edge forward exactly equal; backward max abs err "
+        f"{bwd_err:.3e} (rtol 1e-5, atol 1e-5)")
+    return rows, errs
+
+
+def explain_kernels():
+    from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
+                                                     attend_drop)
+    from tempme_tpu_torch.ops.kernels.sample_masked import sample_masked
+    from tempme_tpu_torch.ops.kernels.sample_rows import sample_rows
+    from tempme_tpu_torch.ops.kernels.sample_union import sample_union
+    from tempme_tpu_torch.ops.kernels.walk_to_edge import (walk_to_edge_bwd,
+                                                           walk_to_edge_fwd)
+    return {"sample_rows": sample_rows, "sample_union": sample_union,
+            "sample_masked": sample_masked, "walk_to_edge": walk_to_edge_fwd,
+            "walk_to_edge_bwd": walk_to_edge_bwd, "attend": attend,
+            "attend_drop": attend_drop, "attend_bwd": attend_bwd}
+
+
+# launches per step of each kernel on the explainer's path: a train step
+# samples 3 sides x 2 hops and each side's walk events 2 and 3, carries the
+# walk importance onto both hops of 3 sides and back, and runs the frozen
+# base twice (the labels, then the explained contrast: 3 sides x 2 layers
+# each) and the explained one's backward; an eval step has no backward and
+# adds the ratio sweep's hop-0 level (one attend per side); a batch of the
+# null model's estimate samples supports and walks only
+EXPLAIN_PER_STEP = {
+    "train": dict(sample_rows=6, sample_union=3, sample_masked=3,
+                  walk_to_edge=6, walk_to_edge_bwd=6, attend=12,
+                  attend_drop=0, attend_bwd=6),
+    "eval": dict(sample_rows=6, sample_union=3, sample_masked=3,
+                 walk_to_edge=6, walk_to_edge_bwd=0, attend=15,
+                 attend_drop=0, attend_bwd=0),
+    "null": dict(sample_rows=6, sample_union=3, sample_masked=3,
+                 walk_to_edge=0, walk_to_edge_bwd=0, attend=0,
+                 attend_drop=0, attend_bwd=0)}
+
+
+def explain_argv(ds_dir, ckpt_dir, out, *extra):
+    return ["--data", DATA_NAME, "--data_dir", ds_dir, "--base_type", "tgn",
+            "--bs", str(EXPLAIN_BATCH), "--test_bs", str(EXPLAIN_BATCH),
+            "--n_epoch", "1", "--seed", str(SEED), "--ckpt_dir", ckpt_dir,
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def explain(ds, ds_dir, ckpt_dir, out, torch):
+    """One epoch of ``temp_exp_main.main`` at full width on the card, on
+    the TGN that [train] wrote: the main path of this slice. Returns
+    (launches, numbers)."""
+    import math
+    import shutil
+    import numpy as np
+    from tempme_tpu_torch.data.events import shuffled_events, split_events
+    from tempme_tpu_torch.train import temp_exp_main
+    kernels = explain_kernels()
+    steps = {"train": len(ds.train) // EXPLAIN_BATCH,
+             "eval": math.ceil(len(ds.val) / EXPLAIN_BATCH)
+             + math.ceil(len(ds.test) / EXPLAIN_BATCH),
+             "null": min(50, len(split_events(
+                 shuffled_events(ds.full, seed=SEED), ds.node_feat,
+                 ds.edge_feat).test) // 10)}
+    want = {k: sum(EXPLAIN_PER_STEP[p][k] * n for p, n in steps.items())
+            for k in kernels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    # the run also writes a mid-epoch checkpoint; a copy of it is the
+    # state of a run stopped right there ([explain-resume] resumes it)
+    save = temp_exp_main.save_checkpoint
+    snapshot = os.path.join(out, "stopped.train_state")
+
+    def snapshotting_save(path, blob, meta=None):
+        save(path, blob, meta=meta)
+        if meta and meta.get("step") == EXPLAIN_RESUME_STEP:
+            shutil.copy(path, snapshot)
+            shutil.copy(path + ".json", snapshot + ".json")
+
+    temp_exp_main.save_checkpoint = snapshotting_save
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            best = temp_exp_main.main(explain_argv(
+                ds_dir, ckpt_dir, out, "--ckpt_every_steps",
+                str(EXPLAIN_RESUME_STEP)))
+    finally:
+        temp_exp_main.save_checkpoint = save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    say(f"  launches on the explainer's path: {launches} for "
+        f"{steps['train']} train, {steps['eval']} eval and {steps['null']} "
+        f"null-model steps; per step {EXPLAIN_PER_STEP}")
+    check_launches(launches, want)
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != steps["train"] or not all(map(math.isfinite, losses)):
+        raise AssertionError("an explainer loss is missing or not finite")
+    tenth = max(1, steps["train"] // 10)
+    first, last = (sum(x) / len(x) for x in (losses[:tenth],
+                                              losses[-tenth:]))
+    eps = tags["Train/events_per_s"][0]
+    numbers = dict(train_ms_per_step=EXPLAIN_BATCH / eps * 1e3,
+                   events_per_s=eps, loss_first_tenth=first,
+                   loss_last_tenth=last,
+                   train_fid_prob=tags["Train/fid_prob"][0],
+                   train_fid_logit=tags["Train/fid_logit"][0],
+                   peak_gib=peak / 2 ** 30, wall_s=wall, best_val=best)
+    for split in ("Val", "Test"):
+        for key in ("aps", "auc", "acc", "fid_prob", "fid_logit", "r_aps",
+                    "r_auc", "r_acc", "r_prob", "r_logit"):
+            numbers[f"{split.lower()}_{key}"] = tags[f"{split}/{key}"][0]
+    for key in ("val_aps", "test_aps", "val_r_aps", "test_r_aps"):
+        if not 0.0 <= numbers[key] <= 1.0:
+            raise AssertionError(f"{key} {numbers[key]} outside [0, 1]")
+    for key in ("test_fid_prob", "test_fid_logit", "test_r_prob",
+                "test_r_logit"):
+        if not math.isfinite(numbers[key]):
+            raise AssertionError(f"{key} is not finite")
+    ckpt = os.path.join(ckpt_dir, "explainer", "tgn", f"{DATA_NAME}.pt")
+    results = os.path.join(out, "results", f"explainer_tgn_{DATA_NAME}.json")
+    null = os.path.join(ckpt_dir, f"null_{DATA_NAME}_n{N_DEGREE}_s{SEED}.npy")
+    for path in (ckpt, ckpt + ".json", ckpt + ".train_state", results, null,
+                 snapshot):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {path}")
+    null_dist = np.load(null)
+    if null_dist.shape != (12,) or abs(float(null_dist.sum()) - 1.0) > 1e-5:
+        raise AssertionError(f"null distribution {null_dist}")
+    say(f"  {steps['train']} steps: {numbers['train_ms_per_step']:.3f} "
+        f"ms/step, {eps:.1f} events/s (the driver's epoch clock); mean loss "
+        f"first tenth {first:.6f}, last tenth {last:.6f}; train fid_prob "
+        f"{numbers['train_fid_prob']:.6f}, fid_logit "
+        f"{numbers['train_fid_logit']:.6f}; val AP {numbers['val_aps']:.6f},"
+        f" test AP {numbers['test_aps']:.6f}; test fid_prob "
+        f"{numbers['test_fid_prob']:.6f}, fid_logit "
+        f"{numbers['test_fid_logit']:.6f}; 16-ratio sweep on test: APS "
+        f"{numbers['test_r_aps']:.6f}, AUC {numbers['test_r_auc']:.6f}, ACC "
+        f"{numbers['test_r_acc']:.6f}, prob {numbers['test_r_prob']:.6f}, "
+        f"logit {numbers['test_r_logit']:.6f}; peak device memory "
+        f"{numbers['peak_gib']:.3f} GiB; main() {wall:.2f} s with loading, "
+        f"the null model and eval")
+    say(f"  null distribution (CAT_ORDER): {np.round(null_dist, 4).tolist()}")
+    return launches, numbers, results, snapshot
+
+
+def explain_resume(ds_dir, ckpt_dir, out, snapshot):
+    """``--resume`` to the end of the epoch from ``snapshot``, the state
+    the [explain] run wrote at its mid-epoch checkpoint (a run stopped right
+    after that checkpoint leaves exactly that state), in a fresh checkpoint
+    directory holding the base and the null distribution."""
+    import shutil
+    from tempme_tpu_torch.train import temp_exp_main
+    mine = os.path.join(out, "params")
+    shutil.copytree(os.path.join(ckpt_dir, "tgnn"),
+                    os.path.join(mine, "tgnn"))
+    for f in glob.glob(os.path.join(ckpt_dir, "null_*.npy")):
+        shutil.copy(f, mine)
+    state = os.path.join(mine, "explainer", "tgn",
+                         f"{DATA_NAME}.pt.train_state")
+    os.makedirs(os.path.dirname(state))
+    shutil.copy(snapshot, state)
+    shutil.copy(snapshot + ".json", state + ".json")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if (meta["epoch"], meta["step"]) != (0, EXPLAIN_RESUME_STEP):
+        raise AssertionError(f"mid-epoch checkpoint meta {meta}")
+    argv = explain_argv(ds_dir, mine, out, "--ckpt_every_steps",
+                        str(EXPLAIN_RESUME_STEP))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        best = temp_exp_main.main(argv + ["--resume"])
+    if f"at epoch 0 step {EXPLAIN_RESUME_STEP}" not in printed.getvalue():
+        raise AssertionError("the second run did not resume mid-epoch")
+    for line in printed.getvalue().splitlines()[-6:]:
+        say(f"    | {line}")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if meta["epoch"] != 0 or "step" in meta or not 0.0 <= best <= 1.0:
+        raise AssertionError(f"the resumed run did not finish: {meta}")
+
+
+def explain_eval_only(ds_dir, ckpt_dir, out, results):
+    """``--eval_only`` on the saved explainer: the test metrics of the
+    best epoch again (within 1e-6)."""
+    from tempme_tpu_torch.train import temp_exp_main
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev = temp_exp_main.main(explain_argv(ds_dir, ckpt_dir, out,
+                                             "--eval_only"))
+    with open(results) as f:
+        saved = json.load(f)
+    worst = max(abs(ev[k] - saved[k]) for k in ev)
+    if not worst <= 1e-6:
+        raise AssertionError(f"--eval_only gave {ev}, the run saved {saved}")
+    say(f"  test metrics of the saved explainer reproduced (max difference "
+        f"{worst:.3e}): APS {ev['aps']:.6f}, ratio APS {ev['r_aps']:.6f}")
+
+
+def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype):
+    """The explainer's train and eval steps on ``dev`` from the checkpoints
+    of [train] and [explain]: the frozen base at ``compute_dtype``, the
+    trained explainer, a fresh Adam, the graphs, features and tables."""
+    import numpy as np
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.explain.tempme import TempME
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.train import temp_exp_main as X
+    from tempme_tpu_torch.train.base_loader import load_base
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    base = load_base(os.path.join(ckpt_dir, "tgnn", f"tgn_{DATA_NAME}.pt"),
+                     device=dev, compute_dtype=compute_dtype)
+    nn_, ne = ds.full.num_nodes, ds.full.num_edges
+    g_train = build_temporal_graph(ds.train, nn_, ne, device=dev)
+    g_full = build_temporal_graph(ds.full, nn_, ne, device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    null = torch.from_numpy(np.load(os.path.join(
+        ckpt_dir, f"null_{DATA_NAME}_n{N_DEGREE}_s{SEED}.npy"))).to(dev)
+    explainer = TempME(ds.node_feat.shape[1], ds.edge_feat.shape[1],
+                       device=dev, seed=SEED)
+    blob, _ = load_checkpoint(os.path.join(
+        ckpt_dir, "explainer", "tgn", f"{DATA_NAME}.pt"), map_location=dev)
+    explainer.load_state_dict(blob["params"])
+    opt = torch.optim.Adam(explainer.parameters(), lr=LR)
+
+    def table(*lists):
+        return torch.from_numpy(RandEdgeSampler(*lists).dst_list).to(dev)
+    train = X.ExplainerTrainStep(explainer, base, g_train, feats,
+                                 table([ds.train.src], [ds.train.dst]),
+                                 N_DEGREE, null, opt)
+    ev = X.ExplainerEvalStep(
+        explainer, base, g_full, feats,
+        table([ds.train.src, ds.val.src, ds.test.src],
+              [ds.train.dst, ds.val.dst, ds.test.dst]), N_DEGREE, null)
+    return train, ev
+
+
+def check_explainer_against_cpu(ds, ckpt_dir, dev):
+    """One explainer train step (batch 100, dropout 0.1, Beta sampling) on
+    the card and on the CPU from the same checkpoints and the same draws
+    (the gamma draws injected), the base at float32: loss rtol 1e-4;
+    gradients rtol 1e-3, atol 1e-4 of each tensor's largest; params after
+    Adam rtol 1e-5, atol 1e-6 where the gradient is settled, within lr
+    elsewhere. Settled: at least 1e-4 of its tensor's largest and at least
+    1e-5 (a thousand times Adam's eps: there the first step,
+    lr * g / (|g| + eps), moves by under 1e-9 for a gradient error of
+    1e-3; the explainer's smallest tensors' gradients are about 1e-4). Then one eval step: the explained logits and, from the
+    same keep masks, the 16-ratio sweep's logits rtol 2e-4, atol 1e-5."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.train import temp_exp_main as X
+    cpu = torch.device("cpu")
+    tc, ec = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32)
+    tg, eg = explainer_steps_on(dev, ds, ckpt_dir, torch.float32)
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, EXPLAIN_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 5)
+    draws = tc.draw(gen, EXPLAIN_BATCH)
+    n, b = N_DEGREE, EXPLAIN_BATCH
+    gamma = tuple(tuple(torch._standard_gamma(torch.full(shape, 2.0),
+                                              generator=gen)
+                        for shape in ((b, n), (b, n), (b, n * n),
+                                      (b, n * n)))
+                  for _ in range(3))
+    draws = draws._replace(gamma=gamma)
+    aux_c = tc(batch, draws)
+    aux_g = tg(to_device(batch, dev), to_device(draws, dev))
+    torch.cuda.synchronize()
+    loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
+    if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
+        raise AssertionError(f"explainer loss {loss_g} on the card, {loss_c} "
+                             f"on the CPU")
+    worst_g, worst_p, unsettled = 0.0, 0.0, 0
+    params_c = dict(tc.explainer.named_parameters())
+    for name, p in tg.explainer.named_parameters():
+        pc = params_c[name]
+        if pc.grad is None:                  # the enhance head (aff_*)
+            if p.grad is not None:
+                raise AssertionError(f"{name}: a gradient on the card only")
+            continue
+        g_c, g_g = pc.grad, p.grad.cpu()
+        top = g_c.abs().max().item()
+        torch.testing.assert_close(g_g, g_c, rtol=1e-3, atol=1e-4 * top,
+                                   msg=lambda m: f"{name} grad: {m}")
+        worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
+                                                                    1e-30))
+        settled = (g_c.abs() >= 1e-4 * top) & (g_c.abs() >= 1e-5)
+        unsettled += int((~settled).sum())
+        diff = (p.detach().cpu() - pc.detach()).abs()
+        if diff.max().item() > LR * 1.001:
+            raise AssertionError(f"{name}: params after Adam differ by "
+                                 f"{diff.max().item()}")
+        torch.testing.assert_close(p.detach().cpu()[settled],
+                                   pc.detach()[settled], rtol=1e-5,
+                                   atol=1e-6,
+                                   msg=lambda m: f"{name} param: {m}")
+        worst_p = max(worst_p, diff[settled].max().item()
+                      if settled.any() else 0.0)
+    say(f"  train step: loss {loss_g:.7f} card, {loss_c:.7f} CPU; worst "
+        f"gradient error {worst_g:.3e} of its tensor's largest; worst settled "
+        f"param error after Adam {worst_p:.3e} ({unsettled} round-off-"
+        f"gradient entries held to lr)")
+
+    ebatch = next(loops.iter_batches(ds.test, EXPLAIN_BATCH, False, cpu))
+    edraws = ec.draw(gen, EXPLAIN_BATCH)
+    with torch.no_grad():
+        fc = ec._forward(ebatch, edraws, training=False)
+        fg = eg._forward(to_device(ebatch, dev), to_device(edraws, dev),
+                         training=False)
+        for key in ("pos", "neg"):
+            torch.testing.assert_close(fg[key].cpu(), fc[key], rtol=2e-4,
+                                       atol=1e-5)
+        keeps = X.keep_masks_for_ratios(fc["explanation"], ec.ratios,
+                                        N_DEGREE)
+        own = X.keep_masks_for_ratios(fg["explanation"], eg.ratios, N_DEGREE)
+        flips = sum(int((a.cpu() != b).sum()) for sa, sb in zip(own, keeps)
+                    for a, b in zip(sa, sb))
+        args = (ebatch.src, ebatch.dst, fc["bgd"], ebatch.ts, *fc["subs"])
+        pos_c, neg_c = ec.base.model.ratio_contrast(
+            ec.feats, ec.base.memory, *args, *keeps)
+        pos_g, neg_g = eg.base.model.ratio_contrast(
+            eg.feats, eg.base.memory, *to_device(args, dev),
+            *([k.to(dev) for k in side] for side in keeps))
+    torch.cuda.synchronize()
+    if pos_g.shape != (16, EXPLAIN_BATCH):
+        raise AssertionError(f"the ratio sweep's shape {pos_g.shape}")
+    for a, b in ((pos_g, pos_c), (neg_g, neg_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+    err = max((pos_g.cpu() - pos_c).abs().max().item(),
+              (neg_g.cpu() - neg_c).abs().max().item())
+    say(f"  eval step: explained logits agree; 16-ratio sweep pos_r, neg_r "
+        f"max abs err {err:.3e}; the card's own keep masks differ from the "
+        f"CPU's in {flips} of {sum(k.numel() for s in keeps for k in s)} "
+        f"entries (near-ties of the importance ranking)")
+
+
+def profile_explainer(ds, ckpt_dir, dev, n_steps=20):
+    """20 explainer train steps at batch 100 as the driver runs them (the
+    base at bf16, draws and gamma from a generator)."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    step, _ = explainer_steps_on(dev, ds, ckpt_dir, torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    batches = loops.stack_batches(ds.train, EXPLAIN_BATCH, True, SEED + 3,
+                                  dev)
+    work = [loops.Batch(*(x[i] for x in batches)) for i in range(n_steps)]
+
+    def run(i):
+        step(work[i], step.draw(gen, EXPLAIN_BATCH))
+    run(0)                                   # warm up off the window
     profile_steps(run, n_steps)
 
 
@@ -792,6 +1422,7 @@ def main():
     sr_rows, sr_err = check_sample_rows(g, torch, dev)
     at_rows, at_err = check_attend(torch, dev)
     drop_rows, bwd_rows, drop_err, bwd_err = check_attend_train(torch, dev)
+    walk_rows, walk_errs = check_walk_kernels(ds, g, torch, dev)
 
     say("[serve] train -> val -> test, memory carried in time order, "
         f"batch {BATCH}, {N_DEGREE} neighbours")
@@ -824,9 +1455,14 @@ def main():
     profile_serving(ds, step, mem, dev)
 
     say("[reference] two test steps on the card against the plain path on "
-        "the CPU (rtol 2e-4, atol 1e-5)")
-    check_against_cpu(ds, step, mem, dev)
-    say("  logits and memory agree")
+        "the CPU at float32 (rtol 2e-4, atol 1e-5), then at bf16, the "
+        "default (rtol 5e-2, atol 5e-2: each side rounds its projections "
+        "to bf16 after float32 sums taken in another order, a bf16 ulp is "
+        "4e-3, and the differences pass through two layers and the memory)")
+    err32 = check_against_cpu(ds, step, mem, dev, torch.float32, 2e-4, 1e-5)
+    err16 = check_against_cpu(ds, step, mem, dev, torch.bfloat16, 5e-2, 5e-2)
+    say(f"  logits and memory agree: max abs err {err32:.3e} at float32, "
+        f"{err16:.3e} at bf16")
     del step, eval_step, g, mem
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -852,30 +1488,77 @@ def main():
             "trained checkpoint: loss rtol 1e-4; gradients rtol 1e-3, atol "
             "1e-4 of the tensor's largest; params after Adam rtol 1e-5, "
             "atol 1e-6; memory rtol 2e-4, atol 1e-5")
-        step_g, mem_g = check_train_against_cpu(
-            ds, os.path.join(work, "train"), dev)
-    say("[trace-train] torch.profiler over 20 train steps at batch "
-        f"{BATCH} (not counted above)")
-    profile_training(ds, step_g, mem_g, dev)
+        check_train_against_cpu(ds, os.path.join(work, "train"), dev)
+        ckpt_dir = os.path.join(work, "train", "params")
+        say(f"[explain] temp_exp_main.main on the frozen TGN of [train] "
+            f"(load_base, bf16 projections): one epoch, batch "
+            f"{EXPLAIN_BATCH}, {N_DEGREE} neighbours, 3 walk continuations "
+            f"(60 walks, 180 walk event slots a side), out_dim 40, hid_dim "
+            f"64, dropout {DROPOUT}, Adam lr {LR}, then val and test with "
+            f"fidelity and the 16-ratio sweep")
+        explain_launches, explain_numbers, results_path, snapshot = explain(
+            ds, ds_dir, ckpt_dir, os.path.join(work, "explain"), torch)
+        say(f"[explain-resume] --resume from the state of a run stopped "
+            f"right after its --ckpt_every_steps {EXPLAIN_RESUME_STEP} "
+            f"checkpoint, to the end of the epoch")
+        t0 = time.perf_counter()
+        explain_resume(ds_dir, ckpt_dir,
+                       os.path.join(work, "explain_resume"), snapshot)
+        say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+        say("[explain-eval-only] --eval_only on the saved explainer")
+        explain_eval_only(ds_dir, ckpt_dir, os.path.join(work, "explain_eval"),
+                          results_path)
+        say(f"[explain-reference] one explainer train step (batch "
+            f"{EXPLAIN_BATCH}, dropout {DROPOUT}, injected draws) and one "
+            f"eval step on the card against the CPU, the base at float32: "
+            f"loss rtol 1e-4; gradients rtol 1e-3, atol 1e-4 of the tensor's "
+            f"largest; params after Adam rtol 1e-5, atol 1e-6 where the "
+            f"gradient is settled (1e-4 of the largest and 1e-5), within lr "
+            f"elsewhere; logits and the 16-ratio sweep rtol 2e-4, atol 1e-5")
+        check_explainer_against_cpu(ds, ckpt_dir, dev)
+        say("[trace-explain] torch.profiler over 20 explainer train steps at "
+            f"batch {EXPLAIN_BATCH} (not counted above)")
+        profile_explainer(ds, ckpt_dir, dev)
+        say("[trace-train] torch.profiler over 20 train steps at batch "
+            f"{BATCH} (not counted above)")
+        profile_training(ds, os.path.join(work, "train"), dev)
     say(f"  training cell: {json.dumps(numbers)}")
+    say(f"  explainer cell: {json.dumps(explain_numbers)}")
 
+    by_path = {"serve": serve_launches, "train": launches,
+               "explain": explain_launches}
     kernels = []
     csrc = "tempme_tpu_torch/ops/kernels/csrc/"
-    for name, src, replaces, rows, err in (
+    pallas = "tempme_tpu/ops/pallas/"
+    for name, src, replaces, rows, err, path in (
             ("sample_rows", csrc + "sample_rows.cu",
-             "tempme_tpu/ops/pallas/sample_kernel.py:126",
-             sr_rows["hop1 Q=5120"], sr_err),
-            ("attend", csrc + "attend.cu",
-             "tempme_tpu/ops/pallas/kernels.py:110",
-             at_rows["hop R=10240"], at_err),
-            ("attend_drop", csrc + "attend.cu",
-             "tempme_tpu/ops/pallas/kernels.py:125",
-             drop_rows["hop R=10240"], drop_err),
+             pallas + "sample_kernel.py:126",
+             sr_rows["explain hop1 Q=2000"], sr_err, "explain"),
+            ("attend", csrc + "attend.cu", pallas + "kernels.py:110",
+             at_rows["explain hop m=2000 bfloat16"], at_err, "explain"),
+            ("attend_drop", csrc + "attend.cu", pallas + "kernels.py:125",
+             drop_rows["hop m=5120 bfloat16"], drop_err, "train"),
             ("attend_bwd", csrc + "attend_bwd.cu",
-             "tempme_tpu/ops/pallas/kernels.py:229,247",
-             bwd_rows["hop R=10240"], bwd_err)):
+             pallas + "kernels.py:229,247",
+             bwd_rows["explain hop m=2000 bfloat16 ew"], bwd_err, "explain"),
+            ("sample_union", csrc + "sample_union.cu",
+             pallas + "sample_kernel.py:201", walk_rows["sample_union"],
+             walk_errs["sample_union"], "explain"),
+            ("sample_masked", csrc + "sample_masked.cu",
+             pallas + "sample_kernel.py:267", walk_rows["sample_masked"],
+             walk_errs["sample_masked"], "explain"),
+            ("walk_to_edge", csrc + "walk_to_edge.cu",
+             pallas + "kernels.py:304", walk_rows["walk_to_edge T=400"],
+             walk_errs["walk_to_edge"], "explain"),
+            ("walk_to_edge_bwd", csrc + "walk_to_edge.cu",
+             pallas + "kernels.py:362", walk_rows["walk_to_edge_bwd T=400"],
+             walk_errs["walk_to_edge_bwd"], "explain")):
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": by_path[path][name],
+                        "launches_by_path": {
+                            p: c[name] for p, c in by_path.items()
+                            if name in c},
                         "max_abs_err": err, "ms": rows["ms"],
                         "plain_ms": rows["plain_ms"],
                         "bound_ms": rows["bound_ms"],

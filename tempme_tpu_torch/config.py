@@ -1,8 +1,8 @@
-"""Configuration for the port's TGN training driver.
+"""Configuration for the port's drivers (TGN training, the explainer).
 
-The port's copy of the parts of ``tempme_tpu/config.py`` that the TGN path
-reads: ``DEGREE_DICT``, the data, model and train configs, the shared
-argument groups and ``config_from_args``. The batch size is resolved in one
+The port's copy of the parts of ``tempme_tpu/config.py`` that these paths
+read: ``DEGREE_DICT``, ``DEFAULT_RATIOS``, the data, model, explainer and
+train configs, the shared argument groups and ``config_from_args``. The batch size is resolved in one
 place, ``resolve_bs``, which ``config_from_args`` calls: an explicit
 ``--bs`` wins, and a batch size below 1 is refused.
 """
@@ -23,6 +23,11 @@ DEGREE_DICT = {
     "uslegis": 30,
     "uslegis_sampled": 30,
 }
+
+# The explainer's fidelity sweep: the shares of support edges kept
+# (the reference's temp_exp_main.py:699).
+DEFAULT_RATIOS = (0.01, 0.02, 0.04, 0.06, 0.08, 0.10, 0.12, 0.14,
+                  0.16, 0.18, 0.20, 0.22, 0.24, 0.26, 0.28, 0.30)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +51,21 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExplainerConfig:
+    """The TempME explainer (the reference's temp_exp_main.py:30-53)."""
+    out_dim: int = 40
+    hid_dim: int = 64
+    prior_p: float = 0.3
+    beta: float = 0.5
+    dropout: float = 0.1
+    ratios: tuple = DEFAULT_RATIOS
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 256
     lr: float = 1e-3
+    weight_decay: float = 0.0
     n_epoch: int = 20
     seed: int = 0
 
@@ -57,6 +74,8 @@ class TrainConfig:
 class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    explainer: ExplainerConfig = dataclasses.field(
+        default_factory=ExplainerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
@@ -99,6 +118,16 @@ def add_model_args(p):
     return p
 
 
+def add_explainer_args(p):
+    """Explainer flags (the reference's temp_exp_main.py:30-53)."""
+    p.add_argument("--out_dim", type=int, default=40)
+    p.add_argument("--hid_dim", type=int, default=64)
+    p.add_argument("--prior_p", type=float, default=0.3)
+    p.add_argument("--beta", type=float, default=0.5)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    return p
+
+
 def resolve_bs(args) -> int:
     """Fill ``args.bs`` from the parser's nominal default when ``--bs`` was
     not given; refuse a batch size below 1."""
@@ -110,16 +139,25 @@ def resolve_bs(args) -> int:
 
 
 def config_from_args(args) -> Config:
-    """One Config from parsed args; the driver reads its hyperparameters
-    from this tree."""
+    """One Config from parsed args; the drivers read their hyperparameters
+    from this tree. Groups a driver did not add keep their defaults."""
+    def g(name, default):
+        return getattr(args, name, default)
     data = DataConfig(name=args.data, data_dir=args.data_dir)
     model = ModelConfig(
         base_type=args.base_type,
-        n_degree=args.n_degree or DEGREE_DICT.get(data.name, 20),
-        n_layers=args.n_layer, n_heads=args.n_head, dropout=args.drop_out,
-        memory_updater=args.memory_updater, aggregator=args.aggregator,
-        message_function=args.message_function,
-        embedding_module=args.embedding_module)
+        n_degree=g("n_degree", 0) or DEGREE_DICT.get(data.name, 20),
+        n_layers=g("n_layer", 2), n_heads=g("n_head", 2),
+        dropout=args.drop_out,
+        memory_updater=g("memory_updater", "gru"),
+        aggregator=g("aggregator", "last"),
+        message_function=g("message_function", "mlp"),
+        embedding_module=g("embedding_module", "graph_attention"))
+    explainer = ExplainerConfig(
+        out_dim=g("out_dim", 40), hid_dim=g("hid_dim", 64),
+        prior_p=g("prior_p", 0.3), beta=g("beta", 0.5),
+        dropout=args.drop_out)
     train = TrainConfig(batch_size=resolve_bs(args), lr=args.lr,
+                        weight_decay=g("weight_decay", 0.0),
                         n_epoch=args.n_epoch, seed=args.seed)
-    return Config(data=data, model=model, train=train)
+    return Config(data=data, model=model, explainer=explainer, train=train)

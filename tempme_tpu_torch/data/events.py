@@ -3,8 +3,9 @@
 The port's own copy of ``tempme_tpu/data/events.py``: the same struct of
 arrays ``(src, dst, ts, label, e_idx)``, the ``ml_{name}`` file layout, the
 70/15/15 quantile time split with the seed-2023 masked "new node" set over a
-sorted candidate list, the uniform negative sampler and the per-side
-inter-event gap statistics. Pure numpy, so the outputs equal the JAX
+sorted candidate list, the uniform negative sampler, the shuffled "null
+graph" of the explainer's motif prior and the per-side inter-event gap
+statistics. Pure numpy, so the outputs equal the JAX
 package's bit for bit.
 """
 from __future__ import annotations
@@ -176,6 +177,15 @@ class RandEdgeSampler:
         src_index = self._rng.randint(0, len(self.src_list), size)
         dst_index = self._rng.randint(0, len(self.dst_list), size)
         return self.src_list[src_index], self.dst_list[dst_index]
+
+
+def shuffled_events(events: EventStream,
+                    seed: Optional[int] = None) -> EventStream:
+    """Permute (src, dst, label) against (ts, e_idx): the "null graph" of
+    the explainer's motif prior (``explain/null_model.py``)."""
+    perm = np.random.RandomState(seed).permutation(len(events))
+    return EventStream(events.src[perm], events.dst[perm], events.ts,
+                       events.label[perm], events.e_idx)
 
 
 def compute_time_statistics(events: EventStream

@@ -6,9 +6,15 @@ file order for ties) and flattened into ``(ngh_node, ngh_eid, ngh_ts)`` with
 ``off[n]:off[n+1]`` giving node n's slice. ``edge_ts`` maps an edge id to its
 timestamp (0 for the padding id 0).
 
+The secondary CSR ``bynb_*`` holds the same entries over the same ``off``
+slices sorted by (node, neighbour, ts, file order): the entries of one
+(node, neighbour) pair are contiguous and time-sorted, so "events of node v
+with neighbour x strictly before t" is one double bisect. The walk
+sampler's third event (``ops/kernels/sample_masked.py``) counts and picks
+its candidates there.
+
 The JAX package's dense ``[N, C]`` layout exists for the TPU's VMEM and is
-left out: the CUDA sampling kernel reads the CSR directly. The secondary
-``bynb_*`` CSR belongs to the explainer's walk sampler and is not built yet.
+left out: the CUDA sampling kernels read the CSR directly.
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ class TemporalGraph:
     ngh_ts: torch.Tensor     # [T] float32 timestamp per entry (sorted per node)
     off: torch.Tensor        # [N+1] int32 CSR offsets
     edge_ts: torch.Tensor    # [E] float32 timestamp by edge id
+    bynb_ngh: torch.Tensor   # [T] int32 the entries sorted by (node, ngh, ts)
+    bynb_eid: torch.Tensor   # [T] int32
+    bynb_ts: torch.Tensor    # [T] float32
     num_nodes: int
     num_edges: int
     max_degree: int
@@ -55,6 +64,8 @@ def build_temporal_graph(events: EventStream, num_nodes: int | None = None,
 
     # stable sort by (node, ts): ties keep file order
     order = np.lexsort((np.arange(len(src)), ts, src))
+    # secondary CSR: sorted by (node, neighbour, ts), ties in file order
+    order2 = np.lexsort((np.arange(len(src)), ts, ngh.astype(np.int64), src))
     counts = np.bincount(src, minlength=num_nodes)
     off = np.zeros(num_nodes + 1, dtype=np.int32)
     np.cumsum(counts, out=off[1:])
@@ -67,5 +78,7 @@ def build_temporal_graph(events: EventStream, num_nodes: int | None = None,
     return TemporalGraph(
         ngh_node=put(ngh[order]), ngh_eid=put(eid[order]),
         ngh_ts=put(ts[order]), off=put(off), edge_ts=put(edge_ts),
+        bynb_ngh=put(ngh[order2]), bynb_eid=put(eid[order2]),
+        bynb_ts=put(ts[order2]),
         num_nodes=int(num_nodes), num_edges=int(num_edges),
         max_degree=int(counts.max()) if len(counts) else 0)

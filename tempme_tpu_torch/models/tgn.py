@@ -1,7 +1,7 @@
-"""TGN with node memory, in serving and training form.
+"""TGN with node memory, in serving and training form, and as the frozen
+base the TempME explainer explains.
 
-Port of ``tempme_tpu/models/tgn.py:33-320,405-466`` in the variant the repo
-ships (``params/tgnn/tgn_uslegis_sampled.msgpack``): GRU memory updater,
+Port of ``tempme_tpu/models/tgn.py`` in the variant the repo ships (``params/tgnn/tgn_uslegis_sampled.msgpack``): GRU memory updater,
 ``last`` message aggregator, ``mlp`` message function and
 ``graph_attention`` embedding. Every other variant raises, naming ROADMAP
 item A4.
@@ -15,7 +15,12 @@ does).
 
 Training mode is the dropout draws: ``contrast(..., drop=...)`` takes one
 ``AttnDraws`` per attention call (``dropout_shapes`` gives their shapes);
-without them the model is the eval form. The layers start from the JAX
+without them the model is the eval form. The explainer's hooks:
+``contrast(..., explain_weights=..., update_memory=False)`` weights each
+support edge's attention probability and leaves the memory as it was, and
+``ratio_contrast`` scores the 16-ratio fidelity sweep in one pass. The
+attention projections run in ``compute_dtype`` (bf16 by default, as in the
+JAX package; ``ops/attention.py``). The layers start from the JAX
 package's initialisers, and the GRU is flax's cell (no bias on the reset
 and update gates' recurrent terms), so trained weights stay comparable.
 """
@@ -91,13 +96,15 @@ class TGNAttnLayer(nn.Module):
     concat-merge back to node_dim."""
 
     def __init__(self, node_dim: int, edge_dim: int, time_dim: int,
-                 n_head: int, dropout: float = 0.0):
+                 n_head: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         query_dim = node_dim + time_dim
         d_k = -(-query_dim // n_head)
         self.attn = SplitTemporalAttention(
             n_head=n_head, d_model=query_dim, d_k=d_k, d_node=node_dim,
-            d_edge=edge_dim, d_time=time_dim, dropout=dropout)
+            d_edge=edge_dim, d_time=time_dim, dropout=dropout,
+            compute_dtype=compute_dtype)
         self.merger = ConcatMerge(query_dim + node_dim, node_dim, node_dim)
 
     def project_node(self, x):
@@ -118,6 +125,17 @@ class TGNAttnLayer(nn.Module):
                               explain_weight=explain_weight, draws=draws)
         return self.merger(out.squeeze(1), src_feat), attn
 
+    def multi_mask(self, src_feat, src_time_emb, k_nv, v_nv, k_ev, v_ev,
+                   ngh_time_emb, q_keep, kv_keep):
+        """The layer under R keep masks (ratio sweep): q_keep [R, Bq],
+        kv_keep [R, Bq, n] bool -> [R, Bq, node_dim]. A dropped entry acts
+        as node-id-0 padding (``SplitTemporalAttention.multi_mask``)."""
+        out = self.attn.multi_mask(src_feat[:, None, :], src_time_emb, k_nv,
+                                   v_nv, k_ev, v_ev, ngh_time_emb,
+                                   q_keep[..., None], kv_keep)
+        src_r = src_feat[None] * q_keep[..., None].to(src_feat.dtype)
+        return self.merger(out.squeeze(2), src_r)
+
 
 class TGN(nn.Module):
     """Weights are made on the CPU from ``seed`` (the global RNG is left as
@@ -129,7 +147,7 @@ class TGN(nn.Module):
                  memory_updater: str = "gru", aggregator: str = "last",
                  message_function: str = "mlp",
                  embedding_type: str = "graph_attention", device=None,
-                 seed: int = 0):
+                 seed: int = 0, compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         variant = (memory_updater, aggregator, message_function,
                    embedding_type)
@@ -147,7 +165,7 @@ class TGN(nn.Module):
             self.time_encoder = TimeEncode(self.time_dim)
             self.attn_layers = nn.ModuleList([
                 TGNAttnLayer(node_dim, edge_dim, self.time_dim, n_head,
-                             dropout)
+                             dropout, compute_dtype)
                 for _ in range(n_layers)])
             self.message_mlp = nn.Sequential(
                 dense(self.raw_message_dim, self.raw_message_dim // 2),
@@ -216,18 +234,26 @@ class TGN(nn.Module):
             msg_valid=state.msg_valid | has_msg)
 
     # -- embedding pyramid ---------------------------------------------
+    def _time_feats(self, cut_time, sub: Subgraph, hops: int):
+        """The time encodings of the first ``hops`` levels, each level's dt
+        against its parent's time: [B, width, Dt] per level."""
+        b = cut_time.shape[0]
+        n = sub.nodes[0].shape[1]
+        out, standard = [], cut_time[:, None]
+        for t_rec in sub.ts[:hops]:
+            delta = standard[:, :, None] - t_rec.reshape(b, -1, n)
+            out.append(self.time_encoder(delta.reshape(b, -1)))
+            standard = t_rec
+        return out
+
     def _embed_chain(self, feats: Features, memory, anchors, cut_time,
-                     sub: Subgraph, drop: Sequence[AttnDraws] | None = None):
+                     sub: Subgraph, drop: Sequence[AttnDraws] | None = None,
+                     explain_weights=None):
         b = anchors.shape[0]
         n = sub.nodes[0].shape[1]
         node_levels = [anchors[:, None]] + list(sub.nodes)
         combined = feats.node + memory          # memory added to raw features
-        tfeats = []                             # dt per hop vs its parent
-        standard = cut_time[:, None]
-        for t_rec in sub.ts:
-            delta = standard[:, :, None] - t_rec.reshape(b, -1, n)
-            tfeats.append(self.time_encoder(delta.reshape(b, -1)))
-            standard = t_rec
+        tfeats = self._time_feats(cut_time, sub, len(sub.ts))
 
         num_levels = len(node_levels)
         prev_emb = None
@@ -250,37 +276,117 @@ class TGN(nn.Module):
             k_ev, v_ev = layer.project_edge(e_raw)
             e_t = tfeats[t - 1].reshape(bq, n, -1)
             mask = (ngh_nodes == 0).reshape(bq, n)
+            ew = None if explain_weights is None else \
+                explain_weights[t - 1].reshape(bq, n)
             prev_emb, _ = layer(src_feat, src_t, k_nv, v_nv, k_ev, v_ev, e_t,
-                                mask, draws=None if drop is None else drop[i])
+                                mask, explain_weight=ew,
+                                draws=None if drop is None else drop[i])
         return prev_emb                          # [B, node_dim]
+
+    def _ratio_embed(self, feats: Features, memory, anchors, cut_time,
+                     sub: Subgraph, keeps):
+        """The 2-hop embedding under R keep masks at once (the explainer's
+        threshold test): ``keeps`` is per hop an [R, B, width] bool; an edge
+        not kept behaves as node-id-0 padding. Gathers, projections and time
+        encodings are computed once; the hop-1 level runs as
+        ``multi_mask`` and the hop-0 level folds R into the batch of the
+        ``attend`` kernel (R * B rows). Returns [R, B, node_dim]."""
+        if self.n_layers != 2 or len(sub.nodes) < 2:
+            raise ValueError("the ratio sweep needs a 2-layer TGN and 2 hops")
+        b = anchors.shape[0]
+        n = sub.nodes[0].shape[1]
+        r = keeps[0].shape[0]
+        combined = feats.node + memory
+        tfeats = self._time_feats(cut_time, sub, 2)
+
+        # hop-1 children -> hop-0 parents, all R masks in one pass
+        layer2 = self.attn_layers[0]
+        bq = b * n
+        src_feat2 = gather_rows(combined, sub.nodes[0]).reshape(
+            bq, self.node_dim)
+        src_t2 = self.time_encoder(torch.zeros((bq, 1),
+                                               device=src_feat2.device))
+        k_tab, v_tab = layer2.project_node(combined)
+        k_nv2 = gather_rows(k_tab, sub.nodes[1]).reshape(bq, n, -1)
+        v_nv2 = gather_rows(v_tab, sub.nodes[1]).reshape(bq, n, -1)
+        e_raw2 = gather_rows(feats.edge, sub.eids[1]).reshape(bq, n, -1)
+        k_ev2, v_ev2 = layer2.project_edge(e_raw2)
+        q_keep2 = (keeps[0] & (sub.nodes[0] != 0)).reshape(r, bq)
+        kv_keep2 = (keeps[1] & (sub.nodes[1] != 0)).reshape(r, bq, n)
+        emb0 = layer2.multi_mask(src_feat2, src_t2, k_nv2, v_nv2, k_ev2,
+                                 v_ev2, tfeats[1].reshape(bq, n, -1),
+                                 q_keep2, kv_keep2)          # [R, bq, Dn]
+
+        # hop-0 level: R folds into the batch (n keys per anchor)
+        layer1 = self.attn_layers[1]
+        src_feat1 = gather_rows(combined, anchors[:, None]).reshape(
+            b, self.node_dim)
+        src_t1 = self.time_encoder(torch.zeros((b, 1),
+                                               device=src_feat1.device))
+        e_raw1 = gather_rows(feats.edge, sub.eids[0]).reshape(b, n, -1)
+        k_ev1, v_ev1 = layer1.project_edge(e_raw1)
+        k_nv1, v_nv1 = layer1.project_node(emb0.reshape(r * b, n, -1))
+
+        def tile(x):
+            return x[None].expand((r,) + x.shape).reshape(
+                (r * x.shape[0],) + x.shape[1:])
+
+        mask1 = ((sub.nodes[0] == 0)[None] | ~keeps[0]).reshape(r * b, n)
+        out, _ = layer1(tile(src_feat1), tile(src_t1), k_nv1, v_nv1,
+                        tile(k_ev1), tile(v_ev1),
+                        tile(tfeats[0].reshape(b, n, -1)), mask1)
+        return out.reshape(r, b, self.node_dim)
+
+    def ratio_contrast(self, feats: Features, state: TGNMemoryState, src,
+                       tgt, bgd, cut_time, sub_src, sub_tgt, sub_bgd,
+                       keeps_src, keeps_tgt, keeps_bgd):
+        """The frozen base's fidelity sweep: (pos, neg) logits [R, B] under
+        R per-hop keep masks per side, in place of R stacked ``contrast``
+        calls. The memory is advanced for the embeddings but not stored."""
+        upd_memory, _ = self.updated_memory(state)
+        s, t, b = (self._ratio_embed(feats, upd_memory, anchors, cut_time,
+                                     sub, keeps)
+                   for anchors, sub, keeps in ((src, sub_src, keeps_src),
+                                               (tgt, sub_tgt, keeps_tgt),
+                                               (bgd, sub_bgd, keeps_bgd)))
+        return (self.affinity_score(s, t).squeeze(-1),
+                self.affinity_score(s, b).squeeze(-1))
 
     # -- public API ------------------------------------------------------
     def get_node_emb(self, feats: Features, state: TGNMemoryState,
                      src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-                     sub_bgd, drop=None):
+                     sub_bgd, drop=None, explain_weights=None,
+                     update_memory: bool = True):
         """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
-        the embeddings, then the positives persisted and the batch's
-        messages stored. ``drop``: per side (src, tgt, bgd) one
-        ``AttnDraws`` per layer (training), or None (eval)."""
+        the embeddings, then (``update_memory``) the positives persisted and
+        the batch's messages stored; with ``update_memory=False`` the state
+        comes back as it was (the explainer's frozen base). ``drop``: per
+        side (src, tgt, bgd) one ``AttnDraws`` per layer (training), or
+        None (eval). ``explain_weights``: per side a per-hop list of
+        [B, width] float32 weights on the support edges' attention
+        probabilities, or None."""
         upd_memory, upd_last = self.updated_memory(state)
         drop = drop or (None, None, None)
+        ew = explain_weights or (None, None, None)
         src_emb, tgt_emb, bgd_emb = (
-            self._embed_chain(feats, upd_memory, anchors, cut_time, sub, d)
-            for anchors, sub, d in ((src, sub_src, drop[0]),
-                                    (tgt, sub_tgt, drop[1]),
-                                    (bgd, sub_bgd, drop[2])))
-        state = self._persist_positives(state, upd_memory, upd_last,
-                                        torch.cat([src, tgt]))
-        state = self._store_messages(state, src, tgt, src_emb, tgt_emb,
-                                     cut_time, eidx, feats)
+            self._embed_chain(feats, upd_memory, anchors, cut_time, sub, d, w)
+            for anchors, sub, d, w in ((src, sub_src, drop[0], ew[0]),
+                                       (tgt, sub_tgt, drop[1], ew[1]),
+                                       (bgd, sub_bgd, drop[2], ew[2])))
+        if update_memory:
+            state = self._persist_positives(state, upd_memory, upd_last,
+                                            torch.cat([src, tgt]))
+            state = self._store_messages(state, src, tgt, src_emb, tgt_emb,
+                                         cut_time, eidx, feats)
         return (src_emb, tgt_emb, bgd_emb), state
 
     def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
-                 bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None):
+                 bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None,
+                 explain_weights=None, update_memory: bool = True):
         """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
         (s, t, b), state = self.get_node_emb(
             feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-            sub_bgd, drop)
+            sub_bgd, drop, explain_weights, update_memory)
         return (self.affinity_score(s, t), self.affinity_score(s, b)), state
 
     forward = contrast

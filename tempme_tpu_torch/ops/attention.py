@@ -1,12 +1,23 @@
 """Split-projection 1-query x n-neighbour temporal attention.
 
-Port of ``tempme_tpu/ops/attention.py`` ``SplitTemporalAttention`` and
-``_attend``. The key and value projections are bias-free linears over
-``[node || edge || time]``, so they split into per-part projections: node
-and edge parts are projected by the caller (once per table or per level),
-and only the time part is projected per position here. The attention core
-(scores, mask, softmax, dropout, explain weight, value sum) is the
-``attend`` kernel in its eval or training form (``ops/kernels/attend.py``).
+Port of ``tempme_tpu/ops/attention.py`` ``SplitTemporalAttention``,
+``_attend`` and ``multi_mask``. The key and value projections are bias-free
+linears over ``[node || edge || time]``, so they split into per-part
+projections: node and edge parts are projected by the caller (once per table
+or per level), and only the time part is projected per position here. The
+attention core (scores, mask, softmax, dropout, explain weight, value sum)
+is the ``attend`` kernel in its eval or training form
+(``ops/kernels/attend.py``).
+
+The projections and ``fc`` run in ``compute_dtype`` (bf16 by default, as
+the JAX module's flax ``Dense(dtype=bfloat16)``): the parameters stay
+float32, and inputs, weights and ``fc``'s bias are cast to the compute type,
+so the projected parts and their sums ``k_nv + wk_time(t) + k_ev`` are bf16
+and the kernel reads bf16 q, k and v; ``ln(out + residual)`` runs in
+float32. Where no gradient flows to the weights (a frozen base, or under
+``no_grad``) their casts are made once and reused until a weight is
+written. ``compute_dtype=torch.float32`` gives the full-precision form the
+parity tests hold against the JAX package at float32.
 
 Dropout runs where the caller passes draws (``AttnDraws``): on the
 attention probabilities, inside the kernel, and after ``fc``, each keeping
@@ -20,10 +31,12 @@ start from the JAX package's initialisers.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from .kernels.attend import attend, attend_drop
 from .layers import dense
@@ -48,11 +61,27 @@ def _attend(qh, kh, vh, mask, explain_weight, dk, u=None, rate=0.0):
     return out.reshape(out.shape[0], -1), attn
 
 
+def _softmax_value(qh, kh, vh, masked, dk):
+    """The ratio sweep's attention core as the JAX einsums compute it:
+    float32 scores of the compute-type q and k, -1e10 where ``masked``,
+    softmax, the probabilities cast back to the compute type, and a float32
+    value sum. qh [..., h, dk], kh/vh [..., n, h, dk], masked [..., 1, n]
+    -> [..., h, dk] float32."""
+    scores = torch.einsum("...hd,...nhd->...hn", qh.float(), kh.float())
+    scores = scores / math.sqrt(dk)
+    attn = torch.softmax(scores.masked_fill(masked, -1e10), dim=-1)
+    return torch.einsum("...hn,...nhd->...hd", attn.to(vh.dtype).float(),
+                        vh.float())
+
+
 class SplitTemporalAttention(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_k: int, d_node: int,
-                 d_edge: int, d_time: int, dropout: float = 0.0):
+                 d_edge: int, d_time: int, dropout: float = 0.0,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.n_head, self.d_k, self.dropout = n_head, d_k, dropout
+        self.compute_dtype = compute_dtype
+        self._casts = {}     # id(param) -> (weakref, data_ptr, version, cast)
         hd = n_head * d_k
         std = math.sqrt(2.0 / (d_model + d_k))
 
@@ -71,28 +100,51 @@ class SplitTemporalAttention(nn.Module):
         self.fc = dense(hd, d_model, init=nn.init.xavier_normal_)
         self.ln = nn.LayerNorm(d_model, eps=1e-5)
 
+    def _cast(self, p: torch.Tensor) -> torch.Tensor:
+        """Parameter ``p`` in the compute type. Where no gradient flows to
+        it (a frozen base, or under ``no_grad``) the cast is made once and
+        reused until ``p`` is written in place or moved."""
+        cd = self.compute_dtype
+        if p.dtype == cd or (torch.is_grad_enabled() and p.requires_grad):
+            return p.to(cd)
+        hit = self._casts.get(id(p))
+        if hit is None or hit[0]() is not p or \
+                hit[1:3] != (p.data_ptr(), p._version):
+            hit = (weakref.ref(p), p.data_ptr(), p._version,
+                   p.detach().to(cd))
+            self._casts[id(p)] = hit
+        return hit[3]
+
+    def _dense(self, layer: nn.Linear, x):
+        """``layer`` in the compute type: input, weight and bias cast, as
+        flax's ``Dense(dtype=...)`` does."""
+        bias = None if layer.bias is None else self._cast(layer.bias)
+        return F.linear(x.to(self.compute_dtype), self._cast(layer.weight),
+                        bias)
+
     def project_node(self, x):
         """Node-part key/value projections: [..., Dn] -> two [..., h*dk]."""
-        return self.wk_node(x), self.wv_node(x)
+        return self._dense(self.wk_node, x), self._dense(self.wv_node, x)
 
     def project_edge(self, x):
-        return self.wk_edge(x), self.wv_edge(x)
+        return self._dense(self.wk_edge, x), self._dense(self.wv_edge, x)
 
     def forward(self, q_node, q_time, residual, k_nv, v_nv, k_ev, v_ev,
                 ngh_time, mask=None, explain_weight=None,
                 draws: AttnDraws | None = None):
         """q_node [B,Nq,Dn], q_time [B,Nq,Dt], residual [B,Nq,d_model];
         k_nv/v_nv [B,Nngh,h*dk]; k_ev/v_ev the same or None;
-        ngh_time [B,Nngh,Dt]; mask [B,Nngh] bool; ``draws`` the dropout
-        uniforms (training) or None (eval) -> (out [B,Nq,d_model],
-        attn [B,Nq,h,n])."""
+        ngh_time [B,Nngh,Dt]; mask [B,Nngh] bool; explain_weight [B,Nngh]
+        float32 or None; ``draws`` the dropout uniforms (training) or None
+        (eval) -> (out [B,Nq,d_model], attn [B,Nq,h,n])."""
         b, nq, _ = q_node.shape
         n = k_nv.shape[1] // nq
         h, dk = self.n_head, self.d_k
         drop = draws is not None and self.dropout > 0.0
-        q = self.wq_node(q_node) + self.wq_time(q_time)
-        k = k_nv + self.wk_time(ngh_time)
-        v = v_nv + self.wv_time(ngh_time)
+        q = self._dense(self.wq_node, q_node) + self._dense(self.wq_time,
+                                                            q_time)
+        k = k_nv + self._dense(self.wk_time, ngh_time)
+        v = v_nv + self._dense(self.wv_time, ngh_time)
         if k_ev is not None:
             k = k + k_ev
             v = v + v_ev
@@ -103,8 +155,45 @@ class SplitTemporalAttention(nn.Module):
             None if mask is None else mask.reshape(m, n),
             None if explain_weight is None else explain_weight.reshape(m, n),
             dk, draws.attn if drop else None, self.dropout)
-        out = self.fc(out.reshape(b, nq, h * dk))
+        out = self._dense(self.fc, out.reshape(b, nq, h * dk))
         if drop:
             out = torch.where(draws.fc >= self.dropout,
                               out / (1.0 - self.dropout), 0.0)
-        return self.ln(out + residual), attn.reshape(b, nq, h, n)
+        return self.ln(out.float() + residual), attn.reshape(b, nq, h, n)
+
+    def multi_mask(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev, ngh_time,
+                   q_keep, kv_keep):
+        """The ratio sweep's form (eval only): the attention under R keep
+        masks at once. A dropped entry behaves as node-id-0 padding: its
+        projected node parts are scaled by 0 (the node projections are
+        bias-free, so that is the zero row's projection) and its score is
+        masked; the time and edge parts stay. Projections are shared by the
+        R masks; only the keep scaling, scores, softmax and value sum carry
+        the R axis. ``q_keep`` [R, B, Nq] / ``kv_keep`` [R, B, Nq*n] bool
+        (True = kept) -> [R, B, Nq, d_model] float32."""
+        b, nq, _ = q_node.shape
+        n = k_nv.shape[1] // nq
+        h, dk = self.n_head, self.d_k
+        r = q_keep.shape[0]
+        cd = self.compute_dtype
+        q_np = self._dense(self.wq_node, q_node)
+        q_tp = self._dense(self.wq_time, q_time)
+        k_t = self._dense(self.wk_time, ngh_time)
+        v_t = self._dense(self.wv_time, ngh_time)
+        if k_ev is not None:
+            k_t = k_t + k_ev
+            v_t = v_t + v_ev
+        qk = q_keep.to(cd)[..., None]                     # [R, B, Nq, 1]
+        kk = kv_keep.to(cd).reshape(r, b, nq, n, 1)
+        q_r = q_np[None] * qk + q_tp[None]
+        k_r = k_nv.reshape(1, b, nq, n, -1) * kk + k_t.reshape(b, nq, n, -1)
+        v_r = v_nv.reshape(1, b, nq, n, -1) * kk + v_t.reshape(b, nq, n, -1)
+        out = _softmax_value(q_r.reshape(r, b, nq, h, dk),
+                             k_r.reshape(r, b, nq, n, h, dk),
+                             v_r.reshape(r, b, nq, n, h, dk),
+                             ~kv_keep.reshape(r, b, nq, 1, n), dk)
+        out = self._dense(self.fc, out.reshape(r, b, nq, h * dk))
+        residual = torch.cat([q_node[None] * qk.to(q_node.dtype),
+                              q_time[None].expand((r,) + q_time.shape)],
+                             dim=-1)
+        return self.ln(out.float() + residual)

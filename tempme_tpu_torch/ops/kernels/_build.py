@@ -5,7 +5,8 @@ takes raw pointers, sizes and a stream and returns ``cudaGetLastError()``.
 No PyTorch header is included, so a source compiles in seconds. A source is
 compiled at first use into ``tempme_tpu_torch/_build/`` (listed in
 ``.gitignore``), under a name keyed by the hash of the source and the flags,
-so an edited source is rebuilt and a built one is reused.
+so an edited source is rebuilt and a built one is reused. The hash covers
+the shared headers (``csrc/*.cuh``) too.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-KERNELS = ("sample_rows", "attend", "attend_bwd")
+KERNELS = ("sample_rows", "attend", "attend_bwd", "sample_union",
+           "sample_masked", "walk_to_edge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +37,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -14,12 +14,16 @@ given uniforms (``u >= rate`` keeps, scaled by ``1 / (1 - rate)``), times
 the explain weight; returns the weighted value sum and the probabilities.
 Layouts are the model's: q ``[m, h, dk]``, k and v ``[m, n, h, dk]``, mask
 and explain weight ``[m, n]`` (shared by the heads), u ``[m, h, n]`` ->
-out ``[m, h, dk]``, attn ``[m, h, n]``.
+out ``[m, h, dk]``, attn ``[m, h, n]``. q, k and v are float32 or bf16 (one
+type for the three; the model's projections run in bf16 by default) and the
+arithmetic is float32, as the Pallas body's ``astype(jnp.float32)``; the
+mask is bool and everything else float32.
 
 ``attend`` and ``attend_drop`` take the plain version for CPU tensors. For
 CUDA tensors they run the kernel inside one ``torch.autograd.Function``
-whose backward is the ``attend_bwd`` kernel. Each of the three wrappers
-counts its kernel's launches.
+whose backward is the ``attend_bwd`` kernel, which also gives the explain
+weight its gradient (the TempME explainer trains through it). Each of the
+three wrappers counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ def attend_plain(q, k, v, mask=None, ew=None, scale=1.0):
 def attend_drop_plain(q, k, v, mask, ew, u, rate, scale=1.0):
     """The plain PyTorch version of the training form (the JAX package's
     ``_attend_drop_jnp``); ``u=None`` is the eval form."""
+    q, k, v = q.float(), k.float(), v.float()
     scores = torch.einsum("mhd,mnhd->mhn", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], -1e10)
@@ -49,16 +54,22 @@ def attend_drop_plain(q, k, v, mask, ew, u, rate, scale=1.0):
     return torch.einsum("mhn,mnhd->mhd", attn, v), attn
 
 
-def attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout, dattn=None):
-    """(dq, dk, dv) by autograd of the plain version."""
+def attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout, dattn=None,
+                     ew_grad=False):
+    """(dq, dk, dv, dew or None) by autograd of the plain version."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out, attn = attend_drop_plain(*leaves, mask, ew, u, rate, scale)
+        if ew_grad:
+            leaves.append(ew.detach().requires_grad_())
+        out, attn = attend_drop_plain(*leaves[:3], mask,
+                                      leaves[3] if ew_grad else ew, u, rate,
+                                      scale)
         outs, cts = [out], [dout]
         if dattn is not None:
             outs.append(attn)
             cts.append(dattn)
-        return torch.autograd.grad(outs, leaves, cts)
+        grads = torch.autograd.grad(outs, leaves, cts)
+        return tuple(grads) + (() if ew_grad else (None,))
 
 
 def _check(q, k, v, mask, ew, u=None):
@@ -69,9 +80,12 @@ def _check(q, k, v, mask, ew, u=None):
     if k.shape != (m, n, h, dk) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    for t in (q, k, v, ew, u):
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k and v must be all float32 or all bfloat16")
+    for t in (ew, u):
         if t is not None and t.dtype != torch.float32:
-            raise ValueError("q, k, v, ew and u must be float32")
+            raise ValueError("ew and u must be float32")
     if mask is not None and (mask.shape != (m, n) or mask.dtype != torch.bool):
         raise ValueError("mask must be a bool [m, n] tensor")
     if ew is not None and ew.shape != (m, n):
@@ -85,14 +99,15 @@ def _check(q, k, v, mask, ew, u=None):
             raise ValueError("the kernel takes contiguous tensors")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attend: unsupported device {q.device}")
-    if q.device.type == "cuda" and ew is not None and ew.requires_grad:
-        raise NotImplementedError(
-            "the gradient of the explain weight is not ported yet "
-            "(ROADMAP item A9)")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _bf16(q):
+    """The element-type flag of q, k and v for the launchers."""
+    return int(q.dtype == torch.bfloat16)
 
 
 def _forward(q, k, v, mask, ew, u, rate, scale):
@@ -106,14 +121,14 @@ def _forward(q, k, v, mask, ew, u, rate, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if u is None:
         err = lib.attend_launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask),
-                                _ptr(ew), m, h, n, dk, float(scale),
+                                _ptr(ew), m, h, n, dk, _bf16(q), float(scale),
                                 out.data_ptr(), attn.data_ptr(), stream)
         _build.check(err, "attend")
         attend.launches += 1
     else:
         err = lib.attend_drop_launch(_ptr(q), _ptr(k), _ptr(v), _ptr(mask),
                                      _ptr(ew), u.data_ptr(), m, h, n, dk,
-                                     float(scale), float(rate),
+                                     _bf16(q), float(scale), float(rate),
                                      out.data_ptr(), attn.data_ptr(), stream)
         _build.check(err, "attend_drop")
         attend_drop.launches += 1
@@ -135,11 +150,12 @@ class _Attend(torch.autograd.Function):
     def backward(ctx, dout, dattn):
         q, k, v, mask, ew, u = ctx.saved_tensors
         if dout is None:
-            dout = torch.zeros_like(q)
-        dq, dk, dv = attend_bwd(
+            dout = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dq, dk, dv, dew = attend_bwd(
             q, k, v, mask, ew, u, ctx.rate, ctx.scale, dout.contiguous(),
-            None if dattn is None else dattn.contiguous())
-        return dq, dk, dv, None, None, None, None, None
+            None if dattn is None else dattn.contiguous(),
+            ew_grad=ctx.needs_input_grad[4])
+        return dq, dk, dv, None, dew, None, None, None
 
 
 def attend(q, k, v, mask=None, ew=None, scale=1.0):
@@ -165,11 +181,16 @@ def attend_drop(q, k, v, mask, ew, u, rate, scale=1.0):
     return _Attend.apply(q, k, v, mask, ew, u, float(rate), float(scale))
 
 
-def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None):
-    """(dq [m, h, dk], dk, dv [m, n, h, dk]) of either form for the
-    cotangents ``dout`` [m, h, dk] and ``dattn`` [m, h, n] (or None). CPU
-    tensors take autograd of the plain version; CUDA tensors launch the
-    kernel."""
+def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None,
+               ew_grad=False):
+    """(dq [m, h, dk], dk, dv [m, n, h, dk], dew [m, n] or None) of either
+    form for the cotangents ``dout`` [m, h, dk] and ``dattn`` [m, h, n] (or
+    None); dq, dk and dv in the type of q, dew (only with ``ew_grad``, which
+    needs ``ew``) float32. CPU tensors take autograd of the plain version;
+    CUDA tensors launch the kernel, which writes the explain weight's
+    per-head partials ``[m, h, n]``; their sum over the heads is dew."""
+    if ew_grad and ew is None:
+        raise ValueError("ew_grad needs the explain weight ew")
     _check(q, k, v, mask, ew, u)
     for t, shape in ((dout, q.shape), (dattn, q.shape[:2] + k.shape[1:2])):
         if t is not None and (t.shape != shape or t.dtype != torch.float32
@@ -181,20 +202,22 @@ def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None):
             raise ValueError("the kernel takes contiguous tensors")
     if q.device.type == "cpu":
         return attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout,
-                                dattn)
+                                dattn, ew_grad)
     m, h, dk = q.shape
     n = k.shape[1]
     dq = torch.empty_like(q)
     dkey = torch.empty_like(k)
     dval = torch.empty_like(v)
+    dew = torch.empty((m, h, n), dtype=torch.float32, device=q.device) \
+        if ew_grad else None
     err = _lib("attend_bwd").attend_bwd_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(ew), _ptr(u), m, h, n,
-        dk, float(scale), float(rate), _ptr(dout), _ptr(dattn),
-        dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(),
+        dk, _bf16(q), float(scale), float(rate), _ptr(dout), _ptr(dattn),
+        dq.data_ptr(), dkey.data_ptr(), dval.data_ptr(), _ptr(dew),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attend_bwd")
     attend_bwd.launches += 1
-    return dq, dkey, dval
+    return dq, dkey, dval, None if dew is None else dew.sum(dim=1)
 
 
 attend.launches = 0
@@ -202,16 +225,17 @@ attend_drop.launches = 0
 attend_bwd.launches = 0
 
 _ARGTYPES = {
-    # q, k, v, mask, ew | m, h, n, dk | scale | out, attn, stream
-    "attend_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    # q, k, v, mask, ew | m, h, n, dk, bf16 | scale | out, attn, stream
+    "attend_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_float] + [ctypes.c_void_p] * 3,
-    # q, k, v, mask, ew, u | m, h, n, dk | scale, rate | out, attn, stream
-    "attend_drop_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    # q, k, v, mask, ew, u | m, h, n, dk, bf16 | scale, rate |
+    # out, attn, stream
+    "attend_drop_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3,
-    # q, k, v, mask, ew, u | m, h, n, dk | scale, rate |
-    # dout, dattn, dq, dk, dv, stream
-    "attend_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 6,
+    # q, k, v, mask, ew, u | m, h, n, dk, bf16 | scale, rate |
+    # dout, dattn, dq, dk, dv, dew, stream
+    "attend_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 7,
 }
 
 

@@ -6,7 +6,10 @@
 //   s_j = scale * q . k_j, s_j = -1e10 where key j is masked,
 //   p = softmax(s), [training form: p_j = u_j >= rate ? p_j / (1 - rate) : 0],
 //   p *= explain_weight, out = sum_j p_j v_j,
-// and both out and p are written. The training form takes the dropout draws
+// and both out and p are written. q, k and v are float32 or bf16 (the
+// model's projections run in bf16 by default); the kernel is templated on
+// their element type and does every sum in float32, as the Pallas body does
+// (q_ref[:].astype(jnp.float32)). The training form takes the dropout draws
 // u [m, h, n] from the caller, so the backward (attend_bwd.cu) sees the same
 // mask. k and v are read in the layout the model makes them, [m, n, h, dk],
 // through strides, so the head transpose that fused_attend materialises
@@ -20,15 +23,21 @@
 //
 // Bound on the H100: bytes. Each k and v element is read once and used for
 // two flops, far below the card's flop-per-byte balance; at the hop level
-// (10,240 rows, n 20, dk 172) k and v alone are 282 MB, about 84 us at
-// 3.35 TB/s. The dropout draws add 4 bytes per score. This first version
+// (10,240 rows, n 20, dk 172) k and v alone are 282 MB in float32, about
+// 84 us at 3.35 TB/s, and half that in bf16. The dropout draws add 4 bytes per score. This first version
 // does the score reductions one key at a time; it is simple and right, not
 // yet fast.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarps = 4;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -41,10 +50,10 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <bool kDrop>
-__global__ void attend_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
+template <typename T, bool kDrop>
+__global__ void attend_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
                               const unsigned char* __restrict__ mask,
                               const float* __restrict__ ew,
                               const float* __restrict__ u,
@@ -61,17 +70,17 @@ __global__ void attend_kernel(const float* __restrict__ q,
   float* qs = smem + warp * (dk + n);
   float* ps = qs + dk;
 
-  const float* qr = q + r * dk;
-  for (int d = lane; d < dk; d += 32) qs[d] = qr[d];
+  const T* qr = q + r * dk;
+  for (int d = lane; d < dk; d += 32) qs[d] = to_f32(qr[d]);
   __syncwarp();
 
   const long long kstride = static_cast<long long>(h) * dk;   // key j -> j+1
   const long long base = mi * n * kstride + static_cast<long long>(hi) * dk;
-  const float* kb = k + base;
+  const T* kb = k + base;
   for (int j = 0; j < n; ++j) {
-    const float* kr = kb + j * kstride;
+    const T* kr = kb + j * kstride;
     float s = 0.0f;
-    for (int d = lane; d < dk; d += 32) s = fmaf(qs[d], kr[d], s);
+    for (int d = lane; d < dk; d += 32) s = fmaf(qs[d], to_f32(kr[d]), s);
     s = warp_sum(s) * scale;
     if (lane == 0) {
       if (mask != nullptr && mask[mi * n + j]) s = -1e10f;
@@ -99,15 +108,16 @@ __global__ void attend_kernel(const float* __restrict__ q,
   }
   __syncwarp();
 
-  const float* vb = v + base;
+  const T* vb = v + base;
   for (int d = lane; d < dk; d += 32) {
     float acc = 0.0f;
-    for (int j = 0; j < n; ++j) acc = fmaf(ps[j], vb[j * kstride + d], acc);
+    for (int j = 0; j < n; ++j)
+      acc = fmaf(ps[j], to_f32(vb[j * kstride + d]), acc);
     out[r * dk + d] = acc;
   }
 }
 
-template <bool kDrop>
+template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* ew, const void* u, int m, int h, int n, int dk,
            float scale, float rate, void* out, void* attn, void* stream) {
@@ -115,15 +125,15 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   if (rows > 0) {
     const size_t smem = sizeof(float) * kWarps * (dk + n);
     if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(attend_kernel<kDrop>,
+      cudaFuncSetAttribute(attend_kernel<T, kDrop>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
     }
     const long long blocks = (rows + kWarps - 1) / kWarps;
-    attend_kernel<kDrop><<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
+    attend_kernel<T, kDrop><<<static_cast<unsigned>(blocks), 32 * kWarps,
+                              smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const unsigned char*>(mask),
         static_cast<const float*>(ew), static_cast<const float*>(u), m, h, n,
         dk, scale, rate, static_cast<float*>(out), static_cast<float*>(attn));
   }
@@ -132,19 +142,26 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 }  // namespace
 
+// bf16 != 0: q, k and v are __nv_bfloat16, else float.
 extern "C" int attend_launch(const void* q, const void* k, const void* v,
                              const void* mask, const void* ew, int m, int h,
-                             int n, int dk, float scale, void* out, void* attn,
-                             void* stream) {
-  return launch<false>(q, k, v, mask, ew, nullptr, m, h, n, dk, scale, 0.0f,
-                       out, attn, stream);
+                             int n, int dk, int bf16, float scale, void* out,
+                             void* attn, void* stream) {
+  return bf16 ? launch<__nv_bfloat16, false>(q, k, v, mask, ew, nullptr, m,
+                                             h, n, dk, scale, 0.0f, out,
+                                             attn, stream)
+              : launch<float, false>(q, k, v, mask, ew, nullptr, m, h, n, dk,
+                                     scale, 0.0f, out, attn, stream);
 }
 
 extern "C" int attend_drop_launch(const void* q, const void* k, const void* v,
                                   const void* mask, const void* ew,
                                   const void* u, int m, int h, int n, int dk,
-                                  float scale, float rate, void* out,
-                                  void* attn, void* stream) {
-  return launch<true>(q, k, v, mask, ew, u, m, h, n, dk, scale, rate, out,
-                      attn, stream);
+                                  int bf16, float scale, float rate,
+                                  void* out, void* attn, void* stream) {
+  return bf16 ? launch<__nv_bfloat16, true>(q, k, v, mask, ew, u, m, h, n,
+                                            dk, scale, rate, out, attn,
+                                            stream)
+              : launch<float, true>(q, k, v, mask, ew, u, m, h, n, dk, scale,
+                                    rate, out, attn, stream);
 }

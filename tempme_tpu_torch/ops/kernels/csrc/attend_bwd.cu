@@ -13,9 +13,14 @@
 //   g_j  = (dout . v_j + dattn_j) * c_j,
 //   ds_j = p_j * (g_j - sum_i p_i g_i), and 0 where key j is masked (the
 //          forward's -1e10 fill is a constant),
-//   dq   = scale * sum_j ds_j k_j,   dk_j = scale * ds_j * q.
-// Each row owns its slices of dq, dk and dv, so no atomics are needed. The
-// explain weight and the draws get no gradient here.
+//   dq   = scale * sum_j ds_j k_j,   dk_j = scale * ds_j * q,
+//   dew_j (per head) = p_j * keep_j * (dout . v_j + dattn_j), when asked.
+// Each row owns its slices of dq, dk, dv and of the explain weight's
+// per-head partials [m, h, n], whose sum over the heads (the weight is
+// shared by them) the wrapper takes: no atomics, and the result does not
+// depend on the order in which rows run. The draws get no gradient. q, k, v
+// and dq, dk, dv are float32 or bf16 (templated on the element type); every
+// sum is float32.
 //
 // One warp per row, lanes across dk (coalesced rows of k, v, dk and dv, read
 // and written through strides in the [m, n, h, dk] layout). Pass 1 reads k
@@ -25,14 +30,29 @@
 //
 // Bound on the H100: bytes. It must read q, k, v and dout (plus the [m, n]
 // mask, explain weight and draws) and write dq, dk and dv; at the hop level
-// (10,240 rows, n 20, dk 172) k, v, dk and dv are 564 MB, about 0.17 ms at
-// 3.35 TB/s. This first version reads k twice and does the reductions one
+// (10,240 rows, n 20, dk 172) k, v, dk and dv are 564 MB in float32, about
+// 0.17 ms at 3.35 TB/s, and half that in bf16. This first version reads k twice and does the reductions one
 // key at a time; it is simple and right, not yet fast.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarps = 4;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -45,9 +65,10 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__global__ void attend_bwd_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ k,
-                                  const float* __restrict__ v,
+template <typename T>
+__global__ void attend_bwd_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k,
+                                  const T* __restrict__ v,
                                   const unsigned char* __restrict__ mask,
                                   const float* __restrict__ ew,
                                   const float* __restrict__ u,
@@ -55,9 +76,10 @@ __global__ void attend_bwd_kernel(const float* __restrict__ q,
                                   float rate,
                                   const float* __restrict__ dout,
                                   const float* __restrict__ dattn,
-                                  float* __restrict__ dq,
-                                  float* __restrict__ dkey,
-                                  float* __restrict__ dval) {
+                                  T* __restrict__ dq,
+                                  T* __restrict__ dkey,
+                                  T* __restrict__ dval,
+                                  float* __restrict__ dew) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -72,22 +94,22 @@ __global__ void attend_bwd_kernel(const float* __restrict__ q,
   float* gs = as + n;        // dout . v_j, then g_j, then scale * ds_j
 
   for (int d = lane; d < dk; d += 32) {
-    qs[d] = q[r * dk + d];
+    qs[d] = to_f32(q[r * dk + d]);
     gos[d] = dout[r * dk + d];
   }
   __syncwarp();
 
   const long long kstride = static_cast<long long>(h) * dk;   // key j -> j+1
   const long long base = mi * n * kstride + static_cast<long long>(hi) * dk;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const T* kb = k + base;
+  const T* vb = v + base;
   for (int j = 0; j < n; ++j) {
-    const float* kr = kb + j * kstride;
-    const float* vr = vb + j * kstride;
+    const T* kr = kb + j * kstride;
+    const T* vr = vb + j * kstride;
     float s = 0.0f, t = 0.0f;
     for (int d = lane; d < dk; d += 32) {
-      s = fmaf(qs[d], kr[d], s);
-      t = fmaf(gos[d], vr[d], t);
+      s = fmaf(qs[d], to_f32(kr[d]), s);
+      t = fmaf(gos[d], to_f32(vr[d]), t);
     }
     s = warp_sum(s) * scale;
     t = warp_sum(t);
@@ -112,11 +134,13 @@ __global__ void attend_bwd_kernel(const float* __restrict__ q,
   float pg = 0.0f;
   for (int j = lane; j < n; j += 32) {
     const float p = ps[j] / sum;
-    float c = 1.0f;
-    if (u != nullptr) c = u[r * n + j] >= rate ? 1.0f / (1.0f - rate) : 0.0f;
-    if (ew != nullptr) c *= ew[mi * n + j];
+    float keep = 1.0f;
+    if (u != nullptr)
+      keep = u[r * n + j] >= rate ? 1.0f / (1.0f - rate) : 0.0f;
+    const float c = ew != nullptr ? keep * ew[mi * n + j] : keep;
     float g = gs[j];
     if (dattn != nullptr) g += dattn[r * n + j];
+    if (dew != nullptr) dew[r * n + j] = p * keep * g;
     g *= c;
     ps[j] = p;
     as[j] = p * c;
@@ -135,39 +159,56 @@ __global__ void attend_bwd_kernel(const float* __restrict__ q,
     float acc = 0.0f;
     for (int j = 0; j < n; ++j) {
       const long long at = base + j * kstride + d;
-      acc = fmaf(gs[j], k[at], acc);
-      dkey[at] = gs[j] * qd;
-      dval[at] = as[j] * god;
+      acc = fmaf(gs[j], to_f32(k[at]), acc);
+      dkey[at] = from_f32<T>(gs[j] * qd);
+      dval[at] = from_f32<T>(as[j] * god);
     }
-    dq[r * dk + d] = acc;
+    dq[r * dk + d] = from_f32<T>(acc);
   }
 }
 
-}  // namespace
-
-extern "C" int attend_bwd_launch(const void* q, const void* k, const void* v,
-                                 const void* mask, const void* ew,
-                                 const void* u, int m, int h, int n, int dk,
-                                 float scale, float rate, const void* dout,
-                                 const void* dattn, void* dq, void* dkey,
-                                 void* dval, void* stream) {
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* ew, const void* u, int m, int h, int n, int dk,
+           float scale, float rate, const void* dout, const void* dattn,
+           void* dq, void* dkey, void* dval, void* dew, void* stream) {
   const long long rows = static_cast<long long>(m) * h;
   if (rows > 0) {
     const size_t smem = sizeof(float) * kWarps * (2 * dk + 3 * n);
     if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(attend_bwd_kernel,
+      cudaFuncSetAttribute(attend_bwd_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
     }
     const long long blocks = (rows + kWarps - 1) / kWarps;
-    attend_bwd_kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
+    attend_bwd_kernel<T><<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const unsigned char*>(mask),
         static_cast<const float*>(ew), static_cast<const float*>(u), m, h, n,
         dk, scale, rate, static_cast<const float*>(dout),
-        static_cast<const float*>(dattn), static_cast<float*>(dq),
-        static_cast<float*>(dkey), static_cast<float*>(dval));
+        static_cast<const float*>(dattn), static_cast<T*>(dq),
+        static_cast<T*>(dkey), static_cast<T*>(dval),
+        static_cast<float*>(dew));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 != 0: q, k, v, dq, dk and dv are __nv_bfloat16, else float. dew is
+// null, or the float [m, h, n] per-head partials of the explain weight's
+// gradient.
+extern "C" int attend_bwd_launch(const void* q, const void* k, const void* v,
+                                 const void* mask, const void* ew,
+                                 const void* u, int m, int h, int n, int dk,
+                                 int bf16, float scale, float rate,
+                                 const void* dout, const void* dattn,
+                                 void* dq, void* dkey, void* dval, void* dew,
+                                 void* stream) {
+  return bf16 ? launch<__nv_bfloat16>(q, k, v, mask, ew, u, m, h, n, dk,
+                                      scale, rate, dout, dattn, dq, dkey,
+                                      dval, dew, stream)
+              : launch<float>(q, k, v, mask, ew, u, m, h, n, dk, scale, rate,
+                              dout, dattn, dq, dkey, dval, dew, stream);
 }

@@ -10,7 +10,7 @@
 //   * t = edge_ts[e] when edge ids are given, and the row is forced empty
 //     when v == 0 or e == 0 (the e-path rule of ops/sampler.py cut_by_edge);
 //   * cut = bisect_left of t over ngh_ts[off[v]:off[v+1]] (events strictly
-//     before t), done by every lane on the same addresses;
+//     before t), done by every lane on the same addresses (csr.cuh);
 //   * pick j = clip(floor(u[j] * cut), 0, cut - 1), with the product rounded
 //     by __fmul_rn so no contraction changes a pick;
 //   * the picks are ranked in shared memory (ties by index), which sorts them
@@ -23,6 +23,8 @@
 // coalesced (lanes write consecutive ranks); the bisect is a chain of
 // dependent loads, which is latency, not bandwidth.
 #include <cuda_runtime.h>
+
+#include "csr.cuh"
 
 namespace {
 
@@ -48,32 +50,21 @@ __global__ void sample_rows_kernel(const int* __restrict__ off,
   if (qi >= q) return;  // warp-uniform: the whole warp leaves together
   int* picks = picks_all + warp * n;
 
-  const int v = min(max(nodes[qi], 0), num_nodes - 1);
-  float t;
-  bool force_empty = false;
+  int start, cut;
   if (eids != nullptr) {
-    const int e = min(max(eids[qi], 0), num_edges - 1);
-    t = edge_ts[e];
-    force_empty = (v == 0) || (e == 0);
+    const csr::Cut c = csr::edge_cut(off, ngh_ts, edge_ts, nodes[qi],
+                                     eids[qi], num_nodes, num_edges);
+    start = c.start;
+    cut = c.count;
   } else {
-    t = times[qi];
+    const int v = min(max(nodes[qi], 0), num_nodes - 1);
+    start = off[v];
+    cut = csr::lower_bound_ts(ngh_ts, start, off[v + 1], times[qi]) - start;
   }
-  const int start = off[v];
-  int lo = start, hi = off[v + 1];
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (ngh_ts[mid] < t) lo = mid + 1; else hi = mid;
-  }
-  const int cut = force_empty ? 0 : lo - start;
 
   const long long row = static_cast<long long>(qi) * n;
   for (int j = lane; j < n; j += 32) {
-    int p = 0;
-    if (cut > 0) {
-      const float x = __fmul_rn(u[row + j], __int2float_rn(cut));
-      p = min(max(static_cast<int>(floorf(x)), 0), cut - 1);
-    }
-    picks[j] = p;
+    picks[j] = cut > 0 ? csr::uniform_pick(u[row + j], cut) : 0;
   }
   __syncwarp();
   for (int j = lane; j < n; j += 32) {

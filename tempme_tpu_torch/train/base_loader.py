@@ -1,0 +1,58 @@
+"""Rebuild a trained base model (module, weights and TGN memory) from the
+checkpoint its driver wrote.
+
+Port of ``tempme_tpu/train/base_loader.py:26-77``, TGN branch: the JSON
+meta names the architecture, the ``.pt`` blob that ``learn_tgn.main``
+writes holds the parameters and the train-side memory. TGAT and GraphMixer
+bases are not ported yet and raise, naming their ROADMAP items.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..models.tgn import TGN, TGNMemoryState
+from ..utils.checkpoint import load_checkpoint
+from ..utils.devices import resolve_device
+
+_NOT_PORTED = {"tgat": "A10", "graphmixer": "A11"}
+
+
+class LoadedBase(NamedTuple):
+    base_type: str
+    model: torch.nn.Module
+    memory: Optional[TGNMemoryState]   # the TGN's memory, else None
+    meta: dict
+
+
+def load_base(ckpt_path: str, device=None,
+              compute_dtype: torch.dtype = torch.bfloat16) -> LoadedBase:
+    """The base of ``ckpt_path`` on ``device`` (CUDA unless
+    ``device="cpu"``), frozen (no parameter requires a gradient) and in
+    eval form. ``compute_dtype`` is the attention projections' type, bf16
+    as in the JAX package."""
+    dev = resolve_device(device)
+    blob, meta = load_checkpoint(ckpt_path, map_location="cpu")
+    base_type = meta["base_type"]
+    if base_type in _NOT_PORTED:
+        raise NotImplementedError(
+            f"loading a {base_type} base is not ported yet (ROADMAP item "
+            f"{_NOT_PORTED[base_type]})")
+    if base_type != "tgn":
+        raise ValueError(f"unknown base_type {base_type}")
+    model = TGN(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
+                num_nodes=meta["num_nodes"], n_layers=meta["n_layer"],
+                n_head=meta["n_head"], dropout=meta["drop_out"],
+                memory_updater=meta.get("memory_updater", "gru"),
+                aggregator=meta.get("aggregator", "last"),
+                message_function=meta.get("message_function", "mlp"),
+                embedding_type=meta.get("embedding_module",
+                                        "graph_attention"),
+                device=dev, compute_dtype=compute_dtype)
+    model.load_state_dict(blob["params"])
+    model.requires_grad_(False)
+    model.eval()
+    memory = TGNMemoryState(**{k: v.to(dev)
+                               for k, v in blob["memory"].items()})
+    return LoadedBase(base_type, model, memory, meta)

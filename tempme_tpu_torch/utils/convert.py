@@ -1,4 +1,5 @@
-"""Carry flax TGN weights across into the port's ``state_dict``.
+"""Carry flax TGN and TempME weights across into the port's
+``state_dict``.
 
 The input is a flax parameter tree as nested dicts of numpy arrays (with or
 without the outer ``{"params": ...}``). The rules:
@@ -6,8 +7,9 @@ without the outer ``{"params": ...}``). The rules:
 * a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight`` ``[out, in]``;
 * ``LayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
 * ``TimeEncode`` ``freq``/``phase`` carry over as they are;
-* ``attn_{i}`` becomes ``attn_layers.{i}`` and ``nn.Sequential``'s
-  ``layers_{j}`` becomes ``{j}``;
+* ``attn_{i}`` becomes ``attn_layers.{i}``, ``nn.Sequential``'s
+  ``layers_{j}`` becomes ``{j}``, and flax's auto-named ``Dense_{j}`` (the
+  explainer's ``EventGCN`` and motif attention) becomes ``fc{j+1}``;
 * flax's ``GRUCell`` has dense layers ``ir``/``iz``/``in`` with bias and
   ``hr``/``hz`` without (``hn`` has one). The port's ``models/tgn.py``
   ``GRUCell`` has the same parameters, stacked: ``weight_ih = cat(ir, iz,
@@ -44,6 +46,9 @@ def _module_name(name: str) -> str:
     m = re.fullmatch(r"attn_(\d+)", name)
     if m:
         return f"attn_layers.{m.group(1)}"
+    m = re.fullmatch(r"Dense_(\d+)", name)
+    if m:
+        return f"fc{int(m.group(1)) + 1}"
     m = re.fullmatch(r"layers_(\d+)", name)
     return m.group(1) if m else name
 
@@ -63,7 +68,8 @@ def _walk(tree: dict, prefix: str, out: dict) -> None:
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax parameter tree of a TGN (or of one of its submodules) -> the
+    """Flax parameter tree of a TGN or a TempME explainer (or of one of
+    their submodules) -> the
     matching port module's ``state_dict`` as CPU float32 tensors (load it
     with ``module.load_state_dict``)."""
     if set(params) == {"params"}:

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_attention import _flat_jax, _init_all, _inputs
+from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
 from tempme_tpu.ops.attention import SplitTemporalAttention as JaxSplit
 from tempme_tpu.ops.pallas import kernels as pk
 from tempme_tpu_torch.ops.attention import AttnDraws, SplitTemporalAttention
@@ -186,7 +187,8 @@ def test_split_attention_training_form_matches_jax(monkeypatch, pallas):
     (_, (out_r, attn_r)), g_r = jax.value_and_grad(loss, has_aux=True)(
         params)
 
-    tm = SplitTemporalAttention(h, d_model, dk, dn, de, dt, dropout=rate)
+    tm = SplitTemporalAttention(h, d_model, dk, dn, de, dt, dropout=rate,
+                                compute_dtype=torch.float32)
     tm.load_state_dict(flax_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params)))
     out, attn = tm(*(torch.from_numpy(x) for x in args),

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
 
 from tempme_tpu.models.tgn import TGNAttnLayer as JaxTGNAttnLayer
 from tempme_tpu.ops.attention import SplitTemporalAttention as JaxSplit
@@ -125,7 +126,8 @@ def test_split_attention_matches_jax(monkeypatch, pallas):
     params = _init_all(jm, jax.random.PRNGKey(0), args, q_node, k_ev[..., :de],
                        mask=mask, explain_weight=ew)
     out_r, attn_r = jm.apply(params, *args, mask=mask, explain_weight=ew)
-    tm = SplitTemporalAttention(h, d_model, dk, dn, de, dt)
+    tm = SplitTemporalAttention(h, d_model, dk, dn, de, dt,
+                                compute_dtype=torch.float32)
     tm.load_state_dict(flax_to_state_dict(_params_np(params)))
     with torch.no_grad():
         out, attn = tm(*(torch.from_numpy(x) for x in args),
@@ -154,7 +156,7 @@ def test_tgn_attn_layer_matches_jax():
     params = _init_all(jl, jax.random.PRNGKey(1), args, src_feat,
                        r.randn(bq, de).astype(np.float32))
     out_r, attn_r = jl.apply(params, *args)
-    tl = TGNAttnLayer(dn, de, dn, h)
+    tl = TGNAttnLayer(dn, de, dn, h, compute_dtype=torch.float32)
     tl.load_state_dict(flax_to_state_dict(_params_np(params)))
     with torch.no_grad():
         out, attn = tl(*(torch.from_numpy(x) for x in args))
@@ -162,3 +164,53 @@ def test_tgn_attn_layer_matches_jax():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(attn.numpy(), np.asarray(attn_r),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_weight_casts_are_kept_while_no_gradient_flows():
+    """At the bf16 default the weights are cast per call while a gradient
+    flows to them, and cast once and reused otherwise (under ``no_grad``,
+    or frozen as the explainer's base is) until they are written in place;
+    the outputs are the same either way."""
+    b, nq, n, h, dk, dn, de, dt = 3, 1, 4, 2, 6, 8, 5, 8
+    torch.manual_seed(0)
+    tm = SplitTemporalAttention(h, dn + dt, dk, dn, de, dt)
+    r = np.random.RandomState(4)
+    q_node, q_time = (torch.from_numpy(r.randn(b, nq, d).astype(np.float32))
+                      for d in (dn, dt))
+    ngh = torch.from_numpy(r.randn(b, nq * n, dn).astype(np.float32))
+    edge = torch.from_numpy(r.randn(b, nq * n, de).astype(np.float32))
+    ngh_time = torch.from_numpy(r.randn(b, nq * n, dt).astype(np.float32))
+
+    def run():
+        k_nv, v_nv = tm.project_node(ngh)
+        k_ev, v_ev = tm.project_edge(edge)
+        out, _ = tm(q_node, q_time, torch.cat([q_node, q_time], -1), k_nv,
+                    v_nv, k_ev, v_ev, ngh_time)
+        return out
+
+    def cached():
+        return {k: v[3] for k, v in tm._casts.items()}
+
+    fresh = run()
+    assert fresh.requires_grad and not tm._casts
+    with torch.no_grad():
+        first = run()
+        casts = cached()
+        again = run()
+    assert len(casts) == 10                 # 8 projections, fc and its bias
+    assert all(cached()[k] is c for k, c in casts.items())
+    assert all(c.dtype == torch.bfloat16 for c in casts.values())
+    assert torch.equal(first, fresh.detach()) and torch.equal(again, first)
+    with torch.no_grad():
+        tm.fc.weight.mul_(2.0)               # as an optimiser step would
+        tm.wq_time.weight.add_(0.5)
+        written = run()
+    assert cached()[id(tm.fc.weight)] is not casts[id(tm.fc.weight)]
+    assert cached()[id(tm.wk_node.weight)] is casts[id(tm.wk_node.weight)]
+    assert torch.equal(written, run().detach())
+    assert not torch.equal(written, first)
+    tm.requires_grad_(False)                 # frozen: cached with grad on
+    casts = cached()
+    frozen = run()
+    assert torch.equal(frozen, written)
+    assert all(cached()[k] is c for k, c in casts.items())

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from conftest import make_events
+from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
 from tempme_tpu_torch.train import learn_base, learn_tgn
 
 N_DEGREE = 5

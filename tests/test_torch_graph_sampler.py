@@ -26,6 +26,19 @@ from tempme_tpu_torch.ops.kernels.sample_rows import sample_rows_plain
 from tempme_tpu_torch.train import loops as L
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the port's CPU tests on one intra-op thread: the tier-1 run has
+    six test workers on the machine's cores, and PyTorch's default of one
+    thread per core in each of them oversubscribes the CPU (a test file
+    took twenty times its time alone). Other port test modules import this
+    fixture, which applies it to them too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_torch_events(ev):
     return EventStream(ev.src, ev.dst, ev.ts, ev.label, ev.e_idx)
 

@@ -1,11 +1,17 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, and
-the launches of one train step.
+the launches of one TGN train step and one explainer train and eval step.
 
 Skipped where there is no CUDA device (the check is made inside the
-fixture, when the test runs). ``sample_rows`` must be bit-identical;
-``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol 1e-6 (float32
-sums in another order), ``attend_bwd`` to rtol 1e-5 and atol 1e-5 (its
-sums run over up to n * dk terms). The file imports neither JAX nor the JAX
+fixture, when the test runs). ``sample_rows``, ``sample_union`` and
+``sample_masked`` must be bit-identical, and ``walk_to_edge``'s forward
+exactly equal; ``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol
+1e-6 (float32 sums in another order), ``attend_bwd`` to rtol 1e-5 and atol
+1e-5 (its sums run over up to n * dk terms; the explain weight's gradient
+too), ``walk_to_edge``'s backward to rtol 1e-5, atol 1e-5 (each slot
+sums its share over up to T targets, in another order). With bf16 q, k and v the forward keeps its
+tolerance (the same float32 arithmetic on the same inputs) and the bf16
+gradients dq, dk, dv are held to rtol 1e-2, atol 1e-4: one bf16 rounding
+of values that differ in their last float32 digits. The file imports neither JAX nor the JAX
 package; on a machine without JAX run it with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``.
 """
@@ -22,8 +28,16 @@ from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
                                                  attend_drop,
                                                  attend_drop_plain,
                                                  attend_plain)
+from tempme_tpu_torch.ops.kernels.sample_masked import (sample_masked,
+                                                        sample_masked_plain)
 from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
                                                       sample_rows_plain)
+from tempme_tpu_torch.ops.kernels.sample_union import (sample_union,
+                                                       sample_union_plain)
+from tempme_tpu_torch.ops.kernels.walk_to_edge import (walk_to_edge,
+                                                       walk_to_edge_bwd,
+                                                       walk_to_edge_fwd,
+                                                       walk_to_edge_plain)
 from tempme_tpu_torch.train import learn_tgn as T
 from tempme_tpu_torch.train import loops as L
 
@@ -147,8 +161,14 @@ def test_attend_autograd_runs_the_backward_kernel(cuda):
     assert attend_bwd.launches == before + 1
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A9"):
-        attend(q, k, v, mask, ew.clone().requires_grad_())
+    # the explain weight's gradient (the explainer trains through it)
+    w = ew.clone().requires_grad_()
+    out, attn = attend(q, k, v, mask, w, 0.25)
+    (g_ew,) = torch.autograd.grad((out, attn), [w], (dout, dattn))
+    want = attend_bwd_plain(q, k, v, mask, ew, None, 0.0, 0.25, dout, dattn,
+                            ew_grad=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g_ew, want[3], rtol=1e-5, atol=1e-5)
 
 
 def test_train_step_launches_each_kernel_six_times(cuda):
@@ -181,3 +201,151 @@ def test_train_step_launches_each_kernel_six_times(cuda):
     eval_step(mem, batch, eval_step.draw(gen, 64))
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(kernels, before)] == [6, 6, 0, 0]
+
+
+@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (5, 3, 1, 7)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attend_kernels_bf16_and_explain_weight_grad(cuda, m, h, n, dk,
+                                                     rate):
+    q, k, v, mask, ew, u, dout, dattn = _attend_inputs(cuda, m, h, n, dk)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    u = u if rate else None
+    scale = 1.0 / dk ** 0.5
+    if rate:
+        out, attn = attend_drop(q, k, v, mask, ew, u, rate, scale)
+    else:
+        out, attn = attend(q, k, v, mask, ew, scale)
+    ref_out, ref_attn = attend_drop_plain(q, k, v, mask, ew, u, rate, scale)
+    got = attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn,
+                     ew_grad=True)
+    want = attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout, dattn,
+                            ew_grad=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(attn, ref_attn, rtol=1e-5, atol=1e-6)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                   atol=1e-4)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
+
+
+def _pair_queries(g, q, seed):
+    r = np.random.RandomState(seed)
+    a = r.randint(0, g.num_nodes, q).astype(np.int32)
+    b = r.randint(0, g.num_nodes, q).astype(np.int32)
+    e = r.randint(0, g.num_edges, q).astype(np.int32)
+    a[:4] = 0                   # probes: padding node, padding edge
+    e[4:8] = 0
+    return a, b, e, r
+
+
+@pytest.mark.parametrize("q,n", [(2000, 3), (333, 1)])
+def test_sample_union_kernel_bitwise(cuda, q, n):
+    ev = _events(3000, 50, seed=3)
+    g = build_temporal_graph(ev, num_nodes=ev.num_nodes + 1, device=cuda)
+    a, b, e, r = _pair_queries(g, q, seed=q)
+    args = [torch.from_numpy(x).to(cuda) for x in (a, b, e)]
+    u = torch.from_numpy(r.rand(q, n).astype(np.float32)).to(cuda)
+    before = sample_union.launches
+    got = sample_union(g, *args, u)
+    want = sample_union_plain(g, *args, u)
+    torch.cuda.synchronize()
+    assert sample_union.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert not got[1][4:8].any() and got[1].any()
+
+
+@pytest.mark.parametrize("q", [6000, 129])
+def test_sample_masked_kernel_bitwise(cuda, q):
+    ev = _events(3000, 50, seed=4)
+    g = build_temporal_graph(ev, num_nodes=ev.num_nodes + 1, device=cuda)
+    a, b, e, r = _pair_queries(g, q, seed=q)
+    va1, va2, vb1 = (ev.dst[r.randint(0, len(ev), q)].astype(np.int32)
+                     for _ in range(3))
+    wild = r.rand(q) < 0.3
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (a, b, e, va1, va2, vb1, wild)]
+    u = torch.from_numpy(r.rand(q).astype(np.float32)).to(cuda)
+    before = sample_masked.launches
+    got = sample_masked(g, *args, u)
+    want = sample_masked_plain(g, *args, u)
+    torch.cuda.synchronize()
+    assert sample_masked.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    found = got[4].cpu().numpy()
+    assert found[wild].any() and found[~wild].any() and not found.all()
+
+
+@pytest.mark.parametrize("b,s,t", [(100, 180, 20), (100, 180, 400),
+                                   (3, 7, 5)])
+def test_walk_to_edge_kernels_match_plain(cuda, b, s, t):
+    r = np.random.RandomState(s + t)
+    ids = torch.from_numpy(r.randint(0, 30, (b, s)).astype(np.int32))
+    imp = torch.from_numpy(r.rand(b, s).astype(np.float32))
+    tgt = torch.from_numpy(r.randint(0, 40, (b, t)).astype(np.int32))
+    imp[0, :] = 0.25                  # exact ties among matching slots
+    imp[1, :] = 0.0                   # a max of 0 ties with the fill
+    tgt[2, :] = 99                    # a row whose targets match nothing
+    ids, imp, tgt = ids.to(cuda), imp.to(cuda), tgt.to(cuda)
+    ct = torch.from_numpy(r.randn(b, t).astype(np.float32)).to(cuda)
+    before = (walk_to_edge_fwd.launches, walk_to_edge_bwd.launches)
+    leaf = imp.clone().requires_grad_()
+    out = walk_to_edge(ids, leaf, tgt)
+    (g_imp,) = torch.autograd.grad(out, [leaf], ct)
+    ref_leaf = imp.clone().requires_grad_()
+    ref = walk_to_edge_plain(ids, ref_leaf, tgt)
+    (g_ref,) = torch.autograd.grad(ref, [ref_leaf], ct)
+    torch.cuda.synchronize()
+    assert (walk_to_edge_fwd.launches, walk_to_edge_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
+    assert not out[2].any()
+
+
+def test_explainer_steps_launch_counts(cuda):
+    """One explainer train step launches the sampler 6 times, the walk
+    samplers 3 times each, the walk -> edge kernel and its backward 6
+    times each, the eval-form attention 12 times (the labelling and the
+    explained contrast) and its backward 6 times; one eval step adds the
+    ratio sweep's hop-0 level (3 more ``attend``) and no backward."""
+    from tempme_tpu_torch.explain.tempme import TempME
+    from tempme_tpu_torch.train import temp_exp_main as X
+    from tempme_tpu_torch.train.base_loader import LoadedBase
+    ev = _events(3000, 60, seed=8)
+    g = build_temporal_graph(ev, num_nodes=ev.num_nodes, device=cuda)
+    r = np.random.RandomState(1)
+    feats = Features(
+        torch.from_numpy(r.randn(g.num_nodes, 16).astype(np.float32)).to(cuda),
+        torch.from_numpy(r.randn(g.num_edges, 8).astype(np.float32)).to(cuda))
+    model = TGN(16, 8, g.num_nodes, dropout=0.1, device=cuda)
+    model.requires_grad_(False)
+    base = LoadedBase("tgn", model,
+                      init_memory_state(g.num_nodes, 16,
+                                        model.raw_message_dim, cuda), {})
+    dst = torch.from_numpy(np.unique(ev.dst)).to(cuda)
+    null = torch.full((12,), 1.0 / 12, device=cuda)
+    explainer = TempME(16, 8, hid_dim=16, device=cuda)
+    opt = torch.optim.Adam(explainer.parameters(), lr=1e-3)
+    step = X.ExplainerTrainStep(explainer, base, g, feats, dst, 5, null, opt)
+    batch = L.Batch(*(x[0] for x in L.stack_batches(ev, 32, True, 0, cuda)))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    kernels = (sample_rows, sample_union, sample_masked, walk_to_edge_fwd,
+               walk_to_edge_bwd, attend, attend_drop, attend_bwd)
+    before = [f.launches for f in kernels]
+    aux = step(batch, step.draw(gen, 32))
+    torch.cuda.synchronize()
+    assert torch.isfinite(aux["loss"])
+    assert [f.launches - b for f, b in zip(kernels, before)] == [
+        6, 3, 3, 6, 6, 12, 0, 6]
+    eval_step = X.ExplainerEvalStep(explainer, base, g, feats, dst, 5, null)
+    before = [f.launches for f in kernels]
+    out = eval_step(batch, eval_step.draw(gen, 32))
+    torch.cuda.synchronize()
+    assert out["pos_r"].shape == (16, 32)
+    assert [f.launches - b for f, b in zip(kernels, before)] == [
+        6, 3, 3, 6, 0, 15, 0, 0]

@@ -16,6 +16,7 @@ import torch
 from tests.conftest import make_events
 from tests.test_torch_graph_sampler import (jax_support_draws,
                                             to_torch_events)
+from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
 from tempme_tpu.data.graph import build_temporal_graph as jax_build_graph
 from tempme_tpu.models.common import Features as JaxFeatures
 from tempme_tpu.models.tgn import TGN as JaxTGN
@@ -92,7 +93,8 @@ class Setup:
                 jax.random.PRNGKey(seed), self.jfeats, self.jmem, b.src,
                 b.dst, b.dst, b.ts, b.eidx, s0, s1, s2)
         self.params = params
-        self.tm = TGN(node_dim, edge_dim, nn_, device="cpu")
+        self.tm = TGN(node_dim, edge_dim, nn_, device="cpu",
+                      compute_dtype=torch.float32)
         self.tm.load_state_dict(flax_to_state_dict(_np_tree(params)))
         self.tmem = init_memory_state(nn_, self.tm.memory_dim,
                                       self.tm.raw_message_dim, device="cpu")

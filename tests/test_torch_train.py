@@ -36,6 +36,7 @@ import torch
 
 from tests.test_torch_graph_sampler import jax_support_draws
 from tests.test_torch_tgn import Setup, _assert_memory_close, _np_tree, _t
+from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
 from tempme_tpu.models.tgn import TGN as JaxTGN
 from tempme_tpu.train import learn_tgn as JT
 from tempme_tpu.train import loops as JL
@@ -86,7 +87,8 @@ def test_train_steps_match_jax():
                                    jopt)
     state = JL.TrainState(s.params, jopt.init(s.params),
                           jax.random.PRNGKey(5))
-    model = TGN(12, 6, s.tm.num_nodes, dropout=0.0, device="cpu")
+    model = TGN(12, 6, s.tm.num_nodes, dropout=0.0, device="cpu",
+                compute_dtype=torch.float32)
     model.load_state_dict(flax_to_state_dict(_np_tree(s.params)))
     assert {n for n, _ in model.memory_updater.named_parameters()} == {
         "weight_ih", "weight_hh", "bias_ih", "bias_hn"}
