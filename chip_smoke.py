@@ -212,9 +212,10 @@ def attend_bytes(m, h, n, dk, with_mask, with_ew, elem=4):
 
 # (row name, rows m) of the attention calls: the serving and training
 # paths' hop level (batch 256 x 20 queries) and root, and the explainer's
-# hop level (batch 100 x 20)
+# hop level (batch 100 x 20) and root
 ATTEND_SHAPES = (("hop m=5120", BATCH * N_DEGREE), ("root m=256", BATCH),
-                 ("explain hop m=2000", 100 * N_DEGREE))
+                 ("explain hop m=2000", 100 * N_DEGREE),
+                 ("explain root m=100", 100))
 
 
 def check_attend(torch, dev):
@@ -398,8 +399,9 @@ def check_against_cpu(ds, step, mem, dev, compute_dtype, rtol, atol,
 
 def profile_steps(run, n_steps=20):
     """Trace ``n_steps`` calls of ``run(i)`` with ``torch.profiler``: the
-    device's busy share of the window and the kernels that took the most
-    device time. The launches made here count for no path."""
+    device's busy share of the window, the kernels that took the most device
+    time and the port's own kernels. The launches made here count for no
+    path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -427,7 +429,11 @@ def profile_steps(run, n_steps=20):
         f" device busy {busy / n_steps / 1e3:.3f} ms/step, idle share "
         f"{1 - busy / wall_us:.3f}, {sum(count.values()) / n_steps:.0f} "
         f"kernels/step")
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
+    ranked = sorted(by_name.items(), key=lambda x: -x[1])
+    # the twelve largest, then the port's own kernels further down
+    port = [x for x in ranked[12:] if any(
+        k in x[0] for k in ("attend", "sample_", "w2e_"))]
+    for name, us in ranked[:12] + port:
         say(f"    {us / n_steps:9.1f} us/step {count[name] / n_steps:5.1f}x "
             f"{name[:90]}")
 

@@ -97,6 +97,8 @@ def _check(q, k, v, mask, ew, u=None):
             raise ValueError("all tensors must be on one device")
         if t is not None and q.device.type == "cuda" and not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+    if q.device.type == "cuda" and n == 0:
+        raise ValueError("the kernel takes at least one key")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attend: unsupported device {q.device}")
 
@@ -187,8 +189,8 @@ def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None,
     form for the cotangents ``dout`` [m, h, dk] and ``dattn`` [m, h, n] (or
     None); dq, dk and dv in the type of q, dew (only with ``ew_grad``, which
     needs ``ew``) float32. CPU tensors take autograd of the plain version;
-    CUDA tensors launch the kernel, which writes the explain weight's
-    per-head partials ``[m, h, n]``; their sum over the heads is dew."""
+    CUDA tensors launch the kernel, one launch in all: it sums the explain
+    weight's gradient over the heads itself and writes dew ``[m, n]``."""
     if ew_grad and ew is None:
         raise ValueError("ew_grad needs the explain weight ew")
     _check(q, k, v, mask, ew, u)
@@ -208,7 +210,7 @@ def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None,
     dq = torch.empty_like(q)
     dkey = torch.empty_like(k)
     dval = torch.empty_like(v)
-    dew = torch.empty((m, h, n), dtype=torch.float32, device=q.device) \
+    dew = torch.empty((m, n), dtype=torch.float32, device=q.device) \
         if ew_grad else None
     err = _lib("attend_bwd").attend_bwd_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(ew), _ptr(u), m, h, n,
@@ -217,7 +219,7 @@ def attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "attend_bwd")
     attend_bwd.launches += 1
-    return dq, dkey, dval, None if dew is None else dew.sum(dim=1)
+    return dq, dkey, dval, dew
 
 
 attend.launches = 0
@@ -233,17 +235,22 @@ _ARGTYPES = {
     "attend_drop_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3,
     # q, k, v, mask, ew, u | m, h, n, dk, bf16 | scale, rate |
-    # dout, dattn, dq, dk, dv, dew, stream
+    # dout, dattn, dq, dk, dv, dew (null or [m, n], summed over the heads in
+    # the kernel), stream
     "attend_bwd_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 7,
 }
 
 
-def _lib(name):
-    lib = _build.load(name)
+def _typed(lib):
+    """``lib`` with the launchers' argument and result types set."""
     for fn_name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, fn_name, None)
         if fn is not None and fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _lib(name):
+    return _typed(_build.load(name))

@@ -83,12 +83,36 @@ def test_sample_rows_kernel_bitwise(cuda, n, edge_cut):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (64, 1, 40, 30),
-                                      (5, 3, 1, 7)])
-def test_attend_kernel_matches_plain(cuda, m, h, n, dk):
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage, so its base is not 16-byte aligned for a small odd offset."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+# (m, h, n, dk, storage offset of k and v in elements): the paths' shape
+# (h 2, dk 172: 16-byte rows, the bulk-copy path), the explainer's root m,
+# odd shapes whose rows are not a multiple of 16 bytes, k and v at an odd
+# offset (4- and 2-byte words) and at 2 elements (8- and 4-byte words),
+# and n large enough that a row's slabs do not fit one block's shared
+# memory (tiles of keys). A block takes one row, so any m, odd ones
+# included, fills its blocks.
+ATTEND_CASES = [(37, 2, 20, 172, 0), (100, 2, 20, 172, 0), (64, 1, 40, 30, 0),
+                (5, 3, 1, 7, 0), (37, 2, 20, 172, 1), (37, 2, 20, 172, 2),
+                (6, 2, 200, 172, 0)]
+
+
+@pytest.mark.parametrize("m,h,n,dk,offset", ATTEND_CASES)
+def test_attend_kernel_matches_plain(cuda, m, h, n, dk, offset):
     r = np.random.RandomState(m)
     q, k, v = (torch.from_numpy(r.randn(*s).astype(np.float32)).to(cuda)
                for s in ((m, h, dk), (m, n, h, dk), (m, n, h, dk)))
+    k, v = _at_offset(k, offset), _at_offset(v, offset)
     mask = torch.from_numpy(r.rand(m, n) < 0.3).to(cuda)
     mask[0] = True
     ew = torch.from_numpy(r.rand(m, n).astype(np.float32)).to(cuda)
@@ -115,11 +139,11 @@ def _attend_inputs(cuda, m, h, n, dk):
     return q, k, v, mask, ew, u, dout, dattn
 
 
-@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (64, 1, 40, 30),
-                                      (5, 3, 1, 7)])
+@pytest.mark.parametrize("m,h,n,dk,offset", ATTEND_CASES)
 @pytest.mark.parametrize("rate", [0.1, 0.5])
-def test_attend_drop_kernel_matches_plain(cuda, m, h, n, dk, rate):
+def test_attend_drop_kernel_matches_plain(cuda, m, h, n, dk, offset, rate):
     q, k, v, mask, ew, u, _, _ = _attend_inputs(cuda, m, h, n, dk)
+    k, v = _at_offset(k, offset), _at_offset(v, offset)
     for mk, w in ((mask, ew), (None, None)):
         before = attend_drop.launches
         out, attn = attend_drop(q, k, v, mk, w, u, rate, 1.0 / dk ** 0.5)
@@ -131,11 +155,11 @@ def test_attend_drop_kernel_matches_plain(cuda, m, h, n, dk, rate):
         torch.testing.assert_close(attn, ref_attn, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (64, 1, 40, 30),
-                                      (5, 3, 1, 7)])
+@pytest.mark.parametrize("m,h,n,dk,offset", ATTEND_CASES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attend_bwd_kernel_matches_plain(cuda, m, h, n, dk, rate):
+def test_attend_bwd_kernel_matches_plain(cuda, m, h, n, dk, offset, rate):
     q, k, v, mask, ew, u, dout, dattn = _attend_inputs(cuda, m, h, n, dk)
+    k, v = _at_offset(k, offset), _at_offset(v, offset)
     u = u if rate else None
     for mk, w, da in ((mask, ew, dattn), (None, None, None)):
         before = attend_bwd.launches
@@ -203,12 +227,15 @@ def test_train_step_launches_each_kernel_six_times(cuda):
     assert [f.launches - b for f, b in zip(kernels, before)] == [6, 6, 0, 0]
 
 
-@pytest.mark.parametrize("m,h,n,dk", [(37, 2, 20, 172), (5, 3, 1, 7)])
+@pytest.mark.parametrize("m,h,n,dk,offset", ATTEND_CASES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attend_kernels_bf16_and_explain_weight_grad(cuda, m, h, n, dk,
-                                                     rate):
+                                                     offset, rate):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     q, k, v, mask, ew, u, dout, dattn = _attend_inputs(cuda, m, h, n, dk)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    k, v = _at_offset(k, offset), _at_offset(v, offset)
     u = u if rate else None
     scale = 1.0 / dk ** 0.5
     if rate:
@@ -216,8 +243,19 @@ def test_attend_kernels_bf16_and_explain_weight_grad(cuda, m, h, n, dk,
     else:
         out, attn = attend(q, k, v, mask, ew, scale)
     ref_out, ref_attn = attend_drop_plain(q, k, v, mask, ew, u, rate, scale)
-    got = attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn,
-                     ew_grad=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = attend_bwd(q, k, v, mask, ew, u, rate, scale, dout, dattn,
+                         ew_grad=True)
+        torch.cuda.synchronize()
+    # one kernel per call: the explain weight's gradient is summed over the
+    # heads inside it
+    launched = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+    assert len(launched) == 1, launched
+    assert got[3].shape == (m, n)
     want = attend_bwd_plain(q, k, v, mask, ew, u, rate, scale, dout, dattn,
                             ew_grad=True)
     torch.cuda.synchronize()
