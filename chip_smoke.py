@@ -869,60 +869,6 @@ def masked_bytes(g, a, b, e, wildcard, found):
     return q * (29 + 4 + 16 + 17) + probes.item() + found.sum().item() * 12
 
 
-def capture_walk_inputs(ds, g, dev):
-    """The walk kernels' inputs on the explainer's main path: one train
-    batch (100 events) sampled through ``sample_explainer_inputs``, with
-    ``sample_union`` and ``sample_masked`` wrapped to record their
-    arguments, and the explainer's ``edge_importance`` with
-    ``walk_to_edge_max`` recorded (side src: hop 0 and hop 1)."""
-    import torch
-    from tempme_tpu_torch.data.events import RandEdgeSampler
-    from tempme_tpu_torch.explain import tempme as E
-    from tempme_tpu_torch.models.common import Features
-    from tempme_tpu_torch.ops import sampler as S
-    from tempme_tpu_torch.train import loops
-    from tempme_tpu_torch.train import temp_exp_main as X
-    rec = {"sample_union": [], "sample_masked": [], "walk_to_edge": []}
-    real = {"sample_union": S.sample_union, "sample_masked": S.sample_masked,
-            "walk_to_edge": E.walk_to_edge_max}
-
-    def recorder(name):
-        def call(*args):
-            rec[name].append(args)
-            return real[name](*args)
-        return call
-    dst = torch.from_numpy(RandEdgeSampler([ds.train.src], [ds.train.dst])
-                           .dst_list).to(dev)
-    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
-                     torch.from_numpy(ds.edge_feat).to(dev))
-    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
-        ds.train, EXPLAIN_BATCH, True, SEED, dev)))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 21)
-    draws = X.ExplainerDraws(
-        loops.draw_support(gen, EXPLAIN_BATCH, 2, N_DEGREE, dst.shape[0],
-                           dev),
-        tuple(S.draw_walks(gen, EXPLAIN_BATCH, N_DEGREE, X.N_WALK_CONT, dev)
-              for _ in range(3)))
-    explainer = E.TempME(ds.node_feat.shape[1], ds.edge_feat.shape[1],
-                         device=dev, seed=SEED)
-    S.sample_union = recorder("sample_union")
-    S.sample_masked = recorder("sample_masked")
-    E.walk_to_edge_max = recorder("walk_to_edge")
-    try:
-        with torch.no_grad():
-            _, subs, walks = X.sample_explainer_inputs(g, batch, dst,
-                                                       N_DEGREE, draws)
-            imp = explainer(feats, walks[0], batch.ts)
-            explainer.edge_importance(feats, subs[0], imp, walks[0],
-                                      training=False)
-    finally:
-        S.sample_union = real["sample_union"]
-        S.sample_masked = real["sample_masked"]
-        E.walk_to_edge_max = real["walk_to_edge"]
-    return rec
-
-
 def check_walk_kernels(ds, g, torch, dev):
     """The three walk kernels against their plain versions at the
     explainer's shapes, on inputs captured from its own sampling and
@@ -937,7 +883,8 @@ def check_walk_kernels(ds, g, torch, dev):
         sample_union, sample_union_plain)
     from tempme_tpu_torch.ops.kernels.walk_to_edge import (
         walk_to_edge_bwd, walk_to_edge_fwd, walk_to_edge_plain)
-    rec = capture_walk_inputs(ds, g, dev)
+    from tempme_tpu_torch.tools.walk_ab import capture_walk_inputs
+    rec = capture_walk_inputs(ds, g, dev, EXPLAIN_BATCH, N_DEGREE, SEED)
     rows, errs = {}, {}
     (ua,) = rec["sample_union"][:1]
     (ma,) = rec["sample_masked"][:1]
@@ -961,8 +908,11 @@ def check_walk_kernels(ds, g, torch, dev):
         q = args[0].shape[0]
         found = ""
         if name == "sample_masked":
+            deg = g.off[1:] - g.off[:-1]
+            top = max(int(deg[v.long()].max()) for v in args[:2])
             found = (f", {int(got[4].sum())} of {q} found, "
-                     f"{int(args[6].sum())} wildcard")
+                     f"{int(args[6].sum())} wildcard, largest degree "
+                     f"queried {top}")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
                           bound_by=by, library_ms=None)
         errs[name] = 0.0

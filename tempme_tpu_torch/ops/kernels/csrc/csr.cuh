@@ -2,8 +2,10 @@
 // (sample_rows.cu, sample_union.cu, sample_masked.cu). Node v's entries are
 // off[v]:off[v+1] of (ngh_node, ngh_eid, ngh_ts), sorted by time; the
 // secondary arrays (bynb_ngh, bynb_eid, bynb_ts) hold the same slices sorted
-// by (neighbour, time). Each lookup is a bisect, a chain of dependent loads:
-// its cost is latency, not bandwidth.
+// by (neighbour, time). Each lookup is a search, a chain of dependent loads:
+// its cost is latency, not bandwidth. A thread bisects alone
+// (lower_bound_ts, log2(degree) loads); a warp's lane groups search
+// together, W pivots a round (warp_lower_bound, log_{W+1}(degree) rounds).
 #pragma once
 
 namespace csr {
@@ -40,17 +42,42 @@ __device__ __forceinline__ Cut edge_cut(const int* __restrict__ off,
                         start};
 }
 
-// First index in node v's slice of the secondary arrays whose (neighbour,
-// time) is not below (x, t): the entries of neighbour x strictly before t
-// are [lower_bound_nb(v, x, -inf), lower_bound_nb(v, x, t)).
-__device__ __forceinline__ int lower_bound_nb(
-    const int* __restrict__ off, const int* __restrict__ bynb_ngh,
-    const float* __restrict__ bynb_ts, int v, int x, float t) {
-  int lo = off[v], hi = off[v + 1];
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    const int nm = bynb_ngh[mid];
-    if (nm < x || (nm == x && bynb_ts[mid] < t)) lo = mid + 1; else hi = mid;
+// A warp's lane groups each search their own range at the same time: lanes
+// [g * W, g * W + W) find the first index in [lo, hi) at which below(i) is
+// false, where below is true and then false over the range (a lower bound;
+// hi when below holds throughout). Each round the group's W lanes test W
+// pivots that cut the range into W + 1 parts, vote with __ballot_sync, and
+// keep the part in which below turns false; a range of at most W entries is
+// tested whole and counted. So a range of n entries takes about
+// log_{W+1}(n) rounds of one load each, where a bisect takes log_2(n).
+// Every lane of the warp calls it, with lo, hi and below the same on the
+// lanes of a group; a lane in no group (lanes 30 and 31 for W 5) passes
+// lo == hi.
+template <int W, class Below>
+__device__ __forceinline__ int warp_lower_bound(int lo, int hi,
+                                                const Below& below) {
+  static_assert(W >= 1 && W < 32, "a lane group lies within one warp");
+  const int lane = threadIdx.x & 31;
+  const int rank = lane % W;
+  const unsigned group = ((1u << W) - 1u) << (lane - rank);
+  while (__any_sync(0xffffffffu, lo < hi)) {
+    const int n = hi - lo;
+    // part j of W + 1 holds q + 1 entries for j < r, q for the others;
+    // pivot j is the last entry of part j
+    const int q = n / (W + 1), r = n % (W + 1);
+    const bool whole = n <= W;
+    const int pos =
+        whole ? lo + rank : lo + (rank + 1) * q + min(rank + 1, r) - 1;
+    const bool hit = (whole ? rank < n : true) && below(pos);
+    const int c = __popc(__ballot_sync(0xffffffffu, hit) & group);
+    if (whole) {
+      lo += c;
+      hi = lo;
+    } else {
+      // the answer lies after pivot c - 1 and at or before pivot c
+      if (c < W) hi = lo + (c + 1) * q + min(c + 1, r) - 1;
+      lo += c * q + min(c, r);
+    }
   }
   return lo;
 }

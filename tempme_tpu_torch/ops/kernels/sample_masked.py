@@ -137,11 +137,15 @@ def sample_masked(g, node_a, node_b, eid_cut, va1, va2, vb1, wildcard, u):
 sample_masked.launches = 0
 
 
-def _lib():
-    lib = _build.load("sample_masked")
+def _typed(lib):
+    """``lib`` with the launcher's argument and result types set."""
     fn = lib.sample_masked_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 16 + [i] * 3 + [p] * 6
         fn.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return _typed(_build.load("sample_masked"))

@@ -109,8 +109,8 @@ def walk_to_edge(ids, imp, tgt):
     return _WalkToEdge.apply(ids, imp, tgt)
 
 
-def _lib():
-    lib = _build.load("walk_to_edge")
+def _typed(lib):
+    """``lib`` with the launchers' argument and result types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, argtypes in (("w2e_fwd_launch", [p] * 3 + [i] * 3 + [p] * 3),
                            ("w2e_bwd_launch", [p] * 6 + [i] * 3 + [p] * 2)):
@@ -119,3 +119,7 @@ def _lib():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return _typed(_build.load("walk_to_edge"))

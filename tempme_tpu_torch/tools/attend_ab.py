@@ -7,8 +7,8 @@ turns, on one card.
 that export the same launchers (``attend_launch``, ``attend_drop_launch``,
 ``attend_bwd_launch``), for example an earlier commit's
 ``tempme_tpu_torch/ops/kernels/csrc`` unpacked with ``git archive``. They are
-built with ``_build.py``'s ``nvcc`` flags into a temporary directory; this
-checkout's are built as the port builds them.
+built and timed by ``tools/ab.py``; this checkout's are built as the port
+builds them.
 
 At the attention shapes of ``chip_smoke.py`` (hop m 5,120, root m 256,
 explainer hop m 2,000) and the explainer's root (m 100), h 2, n 20, dk 172,
@@ -23,9 +23,8 @@ builds), bf16 gradients to rtol 1e-2, atol 1e-4 as in ``chip_smoke.py``;
 the other build's explain-weight gradient is not compared, its layout may
 differ. The largest difference between the two builds' outputs is
 printed.
-Then each form is timed six times in turns, plain, other, this, this,
-other, plain: device ms per call of 20 calls captured in one CUDA graph,
-the median of 7 replays, as ``chip_smoke.py`` times kernels. The launchers
+Then each form is timed six times in turns (``ab.in_turns``: plain, other,
+this, this, other, plain, device ms per call in a CUDA graph). The launchers
 are called directly on buffers made beforehand, so no wrapper, allocation
 or second launch is timed. Prints one line per form and shape and, with
 ``--json``, writes them all.
@@ -33,10 +32,6 @@ or second launch is timed. Prints one line per form and shape and, with
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import os
-import subprocess
 import sys
 import tempfile
 
@@ -44,56 +39,11 @@ import torch
 
 from ..ops.kernels import _build
 from ..ops.kernels import attend as A
+from . import ab
 
 SHAPES = (("hop m=5120", 5120), ("root m=256", 256),
           ("explain hop m=2000", 2000), ("explain root m=100", 100))
 H, N, DK, RATE, SEED = 2, 20, 172, 0.1, 0
-
-
-def build_other(csrc: str, out_dir: str) -> dict:
-    """{name: CDLL} of ``csrc``'s attend.cu and attend_bwd.cu."""
-    procs = {}
-    for name in ("attend", "attend_bwd"):
-        lib = os.path.join(out_dir, f"lib{name}_other.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", lib,
-               os.path.join(csrc, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the other {name}.cu:\n{log}")
-        libs[name] = A._typed(ctypes.CDLL(lib))
-    return libs
-
-
-def device_ms(fn, reps=20, repeats=7):
-    """Device ms per call: ``reps`` calls in one CUDA graph, replayed
-    ``repeats`` times, median."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return sorted(times)[len(times) // 2]
 
 
 def inputs(m, dtype, gen, dev):
@@ -181,17 +131,15 @@ def main(argv=None):
         print("attend_ab: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
+    card = ab.card_line()
     print(f"[attend_ab] {card}; other sources {args.other_csrc}", flush=True)
     this = {name: A._lib(name) for name in ("attend", "attend_bwd")}
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     rows = []
     with tempfile.TemporaryDirectory(prefix="attend_ab_") as tmp:
-        other = build_other(args.other_csrc, tmp)
+        other = {name: A._typed(lib) for name, lib in ab.build_other(
+            args.other_csrc, ("attend", "attend_bwd"), tmp).items()}
         for (shape, m), dtype in ((s, d) for s in SHAPES
                                   for d in (torch.float32, torch.bfloat16)):
             tensors = inputs(m, dtype, gen, dev)
@@ -215,30 +163,20 @@ def main(argv=None):
                     check(name, outs[build], want, build == "this")
                 diff = max((a.float() - b.float()).abs().max().item()
                            for a, b in zip(outs["this"][:3], outs["other"][:3]))
-                order = ("plain", "other", "this", "this", "other", "plain")
-                calls = {"plain": plain, "this": lambda: run("this"),
-                         "other": lambda: run("other")}
-                times = {b: [] for b in calls}
-                for b in order:
-                    times[b].append(device_ms(calls[b]))
+                times = ab.in_turns({"plain": plain,
+                                     "other": lambda: run("other"),
+                                     "this": lambda: run("this")})
                 row = dict(form=name, shape=shape,
                            dtype=str(dtype).replace("torch.", ""),
                            this_vs_other=diff,
                            **{f"{b}_ms": t for b, t in times.items()})
                 rows.append(row)
-                print(f"  {name:14s} {shape:19s} {row['dtype']:8s} plain "
-                      f"{times['plain'][0]:.4f} / {times['plain'][1]:.4f}, "
-                      f"other {times['other'][0]:.4f} / "
-                      f"{times['other'][1]:.4f}, this "
-                      f"{times['this'][0]:.4f} / {times['this'][1]:.4f} ms; "
-                      f"|this - other| {diff:.2e}",
+                print(f"  {name:14s} {shape:19s} {row['dtype']:8s} "
+                      f"{ab.turns_text(times)}; |this - other| {diff:.2e}",
                       flush=True)
     print(card)
     if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
-                    exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump({"card": card, "rows": rows}, f, indent=1)
+        ab.write_json(args.json, card, rows)
     return 0
 
 

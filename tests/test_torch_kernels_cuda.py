@@ -8,7 +8,8 @@ exactly equal; ``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol
 1e-6 (float32 sums in another order), ``attend_bwd`` to rtol 1e-5 and atol
 1e-5 (its sums run over up to n * dk terms; the explain weight's gradient
 too), ``walk_to_edge``'s backward to rtol 1e-5, atol 1e-5 (each slot
-sums its share over up to T targets, in another order). With bf16 q, k and v the forward keeps its
+sums its share over up to T targets, in another order) and to the same
+bits from one launch to the next. With bf16 q, k and v the forward keeps its
 tolerance (the same float32 arithmetic on the same inputs) and the bf16
 gradients dq, dk, dv are held to rtol 1e-2, atol 1e-4: one bf16 rounding
 of values that differ in their last float32 digits. The file imports neither JAX nor the JAX
@@ -317,6 +318,87 @@ def test_sample_masked_kernel_bitwise(cuda, q):
     assert found[wild].any() and found[~wild].any() and not found.all()
 
 
+HUB, PROBES = 1, {50: 1, 51: 31, 52: 32, 53: 33}   # node: degree
+NO_EVENTS = 54
+
+
+def hub_events(hub_degree, num_times, num_background, seed):
+    """A stream with one hub: ``hub_degree`` events of node 1, most of them
+    with neighbour 2 or 3 (long runs of one neighbour in the secondary CSR)
+    at ``num_times`` distinct timestamps (many events at each); nodes 50-53
+    of degree 1, 31, 32 and 33, all with neighbour 4; node 54 without
+    events; ``num_background`` events among nodes 2-40. Returns the numpy
+    arrays (src, dst, ts, label, e_idx), in time order."""
+    r = np.random.RandomState(seed)
+    hub_ngh = r.choice([2, 3, 5], hub_degree, p=[0.6, 0.3, 0.1])
+    probe_src = np.concatenate([np.full(d, v) for v, d in PROBES.items()])
+    src = np.concatenate([np.full(hub_degree, HUB), probe_src,
+                          r.randint(2, 41, num_background)])
+    dst = np.concatenate([hub_ngh, np.full(len(probe_src), 4),
+                          r.randint(2, 41, num_background)])
+    ts = r.randint(0, num_times, len(src)).astype(np.float32)
+    order = np.argsort(ts, kind="stable")
+    n = len(src)
+    return (src[order].astype(np.int32), dst[order].astype(np.int32),
+            ts[order], np.zeros(n, np.float32),
+            np.arange(1, n + 1, dtype=np.int32))
+
+
+def hub_queries(src, dst, q, seed):
+    """sample_masked's queries on ``hub_events``: nodes the hub (about 40%),
+    the probe nodes, the node without events or any other; edge cuts at
+    the hub's own events (their times repeat) or anywhere; candidates the
+    hub's runs, the probes' neighbour or any node; node 0 and edge 0 probes;
+    30% wildcard. Numpy (a, b, eid_cut, va1, va2, vb1, wildcard, u)."""
+    r = np.random.RandomState(seed)
+    special = np.array([HUB, *PROBES, NO_EVENTS])
+
+    def nodes():
+        return np.where(r.rand(q) < 0.4, HUB,
+                        np.where(r.rand(q) < 0.5, r.choice(special, q),
+                                 r.randint(0, 60, q))).astype(np.int32)
+
+    def cands(pool):
+        return np.where(r.rand(q) < 0.7, r.choice(pool, q),
+                        r.randint(0, 60, q)).astype(np.int32)
+    a, b = nodes(), nodes()
+    hub_eids = np.flatnonzero(src == HUB) + 1
+    e = np.where(r.rand(q) < 0.5, r.choice(hub_eids, q),
+                 r.randint(0, len(src) + 1, q)).astype(np.int32)
+    a[1:4] = 0
+    e[4:8] = 0
+    va1, va2, vb1 = cands([2, 4]), cands([3, 5]), cands([2, 3, 4])
+    wild = r.rand(q) < 0.3
+    # query 0 finds a candidate: the hub's run of neighbour 2 before its
+    # last event
+    wild[0] = False
+    a[0], b[0], e[0], va1[0], vb1[0] = HUB, HUB, hub_eids[-1], 2, 2
+    return a, b, e, va1, va2, vb1, wild, r.rand(q).astype(np.float32)
+
+
+@pytest.mark.parametrize("q", [6000, 129, 1])
+def test_sample_masked_kernel_bitwise_on_a_hub(cuda, q):
+    ev = EventStream(*hub_events(5000, 200, 2000, seed=12))
+    g = build_temporal_graph(ev, num_nodes=60, device=cuda)
+    deg = (g.off[1:] - g.off[:-1]).cpu().numpy()
+    assert deg[HUB] > 4096 and deg[NO_EVENTS] == 0
+    assert [deg[v] for v in PROBES] == list(PROBES.values())
+    *ints, wild, u = hub_queries(ev.src, ev.dst, q, seed=q)
+    args = [torch.from_numpy(x).to(cuda) for x in (*ints, wild)]
+    u = torch.from_numpy(u).to(cuda)
+    before = sample_masked.launches
+    got = sample_masked(g, *args, u)
+    want = sample_masked_plain(g, *args, u)
+    torch.cuda.synchronize()
+    assert sample_masked.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    found = got[4].cpu().numpy()
+    assert found[0]
+    if q > 1:
+        assert found[wild].any() and found[~wild].any() and not found.all()
+
+
 @pytest.mark.parametrize("b,s,t", [(100, 180, 20), (100, 180, 400),
                                    (3, 7, 5)])
 def test_walk_to_edge_kernels_match_plain(cuda, b, s, t):
@@ -342,6 +424,47 @@ def test_walk_to_edge_kernels_match_plain(cuda, b, s, t):
     assert torch.equal(out, ref)
     torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
     assert not out[2].any()
+
+
+def _padded_walks(s, t, seed):
+    """16 rows of walk slots and targets, about 80% of both id 0 (padding
+    walks and edges): in the even rows every slot of id 0 has importance
+    0.5, so each such slot attains the max of every target of id 0 and sums
+    hundreds of shares."""
+    r = np.random.RandomState(seed)
+    b = 16
+    ids = np.where(r.rand(b, s) < 0.8, 0, r.randint(1, 30, (b, s)))
+    tgt = np.where(r.rand(b, t) < 0.8, 0, r.randint(1, 30, (b, t)))
+    imp = r.rand(b, s).astype(np.float32)
+    imp[0::2][ids[0::2] == 0] = 0.5
+    ct = r.randn(b, t).astype(np.float32)
+    return (torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(imp),
+            torch.from_numpy(tgt.astype(np.int32)), torch.from_numpy(ct))
+
+
+@pytest.mark.parametrize("s", [1, 180])
+@pytest.mark.parametrize("t", [1, 20, 33, 400])
+def test_walk_to_edge_kernels_with_padding_ids(cuda, s, t):
+    ids, imp, tgt, ct = (x.to(cuda) for x in _padded_walks(s, t, seed=s + t))
+    out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+    g_imp = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
+    leaf = imp.clone().requires_grad_()
+    ref = walk_to_edge_plain(ids, leaf, tgt)
+    (g_ref,) = torch.autograd.grad(ref, [leaf], ct)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [20, 400])
+def test_walk_to_edge_bwd_is_deterministic(cuda, t):
+    ids, imp, tgt, ct = (x.to(cuda) for x in _padded_walks(180, t, seed=t))
+    out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+    first = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
+    second = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert (first != 0).any()
 
 
 def test_explainer_steps_launch_counts(cuda):

@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from tests.conftest import make_events
+from tests.test_torch_kernels_cuda import hub_events, hub_queries
 from tests.test_torch_graph_sampler import (assert_same, jax_hop_draws,
                                             to_torch_events)
 from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
+from tempme_tpu.data.events import EventStream as JaxEventStream
 from tempme_tpu.data.graph import build_temporal_graph as jax_build_graph
 from tempme_tpu.ops import sampler as JS
 from tempme_tpu_torch.data.graph import build_temporal_graph
@@ -112,6 +114,28 @@ def test_sample_masked_plain_matches_jax_csr(graphs, events):
         assert torch.equal(x, y)
     found = port[4].numpy()
     assert found[~wild].any() and found[wild].any() and not found.all()
+
+
+def test_sample_masked_plain_matches_jax_csr_on_a_hub():
+    """The same on a graph with a hub: 600 events of node 1 at 40 distinct
+    times, most with neighbour 2 or 3, edge cuts at the hub's own events,
+    nodes of degree 0, 1, 31, 32 and 33 (the semantics the card's
+    ``sample_masked`` is held to on a larger hub)."""
+    ev = JaxEventStream(*hub_events(600, 40, 300, seed=13))
+    n, q = 60, 96
+    jg = dataclasses.replace(jax_build_graph(ev, num_nodes=n), dense_ts=None,
+                             dense_node=None, dense_eid=None)
+    tg = build_temporal_graph(to_torch_events(ev), num_nodes=n, device="cpu")
+    *ints, wild, _ = hub_queries(ev.src, ev.dst, q, seed=5)
+    key = jax.random.PRNGKey(7)
+    ref = JS._masked_union_sample(jg, key, *map(jnp.asarray, ints),
+                                  jnp.asarray(wild))
+    u = _t(jax.random.uniform(key, (q,)))
+    port = sample_masked_plain(tg, *map(_t, ints), _t(wild), u)
+    assert_same(port, ref)
+    found = port[4].numpy()
+    assert found[0] and found[wild].any() and found[~wild].any()
+    assert not found.all()
 
 
 @pytest.mark.parametrize("n1,n2", [(4, 3), (5, 1)])
