@@ -147,7 +147,8 @@ def bound(nbytes, ops, ops_per_s=H100_F32_OPS_PER_S):
 def check_sample_rows(g, torch, dev):
     """Bitwise check and times at the serving shapes, Q = 256 (hop 0,
     time cut) and Q = 5,120 (hop 1, edge cut from hop 0's picks), and at
-    the explainer's hop 1, Q = 2,000."""
+    the explainer's hop 1, Q = 2,000, and hop 0, Q = 100 (time cut, as the
+    negative side's)."""
     from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
                                                           sample_rows_plain)
     gen = torch.Generator(device=dev)
@@ -184,10 +185,13 @@ def check_sample_rows(g, torch, dev):
         raise AssertionError("sample_rows: hop 1 sampled nothing")
     rows = {}
     q2 = 100 * N_DEGREE                  # the explainer's hop 1 (batch 100)
+    q3 = EXPLAIN_BATCH                   # the explainer's hop 0
     for name, args in (("hop0 Q=256", (nodes0, times0, u0, None)),
                        ("hop1 Q=5120", (nodes1, times1, u1, eids1)),
                        ("explain hop1 Q=2000", (nodes1[:q2], times1[:q2],
-                                                u1[:q2], eids1[:q2]))):
+                                                u1[:q2], eids1[:q2])),
+                       ("explain hop0 Q=100", (nodes0[:q3], times0[:q3],
+                                               u0[:q3], None))):
         ms, host = time_ms(lambda: sample_rows(g, *args))
         plain, plain_host = time_ms(lambda: sample_rows_plain(g, *args))
         q, n = args[2].shape
@@ -873,26 +877,32 @@ def check_walk_kernels(ds, g, torch, dev):
     """The three walk kernels against their plain versions at the
     explainer's shapes, on inputs captured from its own sampling and
     forward: ``sample_union`` at Q = 2,000 x 3 draws and ``sample_masked``
-    at Q = 6,000 bitwise; ``walk_to_edge`` at [100, 180] slots against
-    [100, 20] (hop 0) and [100, 400] (hop 1) targets, the forward exactly
-    and its backward to rtol 1e-5, atol 1e-5 (each slot sums its share over
-    up to T targets, in another order). Returns the rows and the errors."""
+    at Q = 6,000 (and its first 129 queries) bitwise; ``walk_to_edge`` at
+    [100, 180] slots against [100, 20] (hop 0) and [100, 400] (hop 1)
+    targets, the forward exactly (``out`` and ``cnt``) and its backward to
+    rtol 1e-5, atol 1e-5 (each slot sums its share over up to T targets, in
+    another order). Returns the rows and the errors."""
     from tempme_tpu_torch.ops.kernels.sample_masked import (
         sample_masked, sample_masked_plain)
     from tempme_tpu_torch.ops.kernels.sample_union import (
         sample_union, sample_union_plain)
     from tempme_tpu_torch.ops.kernels.walk_to_edge import (
-        walk_to_edge_bwd, walk_to_edge_fwd, walk_to_edge_plain)
+        walk_to_edge_bwd, walk_to_edge_count_plain, walk_to_edge_fwd,
+        walk_to_edge_plain)
     from tempme_tpu_torch.tools.walk_ab import capture_walk_inputs
     rec = capture_walk_inputs(ds, g, dev, EXPLAIN_BATCH, N_DEGREE, SEED)
     rows, errs = {}, {}
     (ua,) = rec["sample_union"][:1]
     (ma,) = rec["sample_masked"][:1]
+    # sample_masked also on its first 129 queries, the shape of
+    # tools/walk_ab.py's second row
     for name, kernel, plain, args, nbytes in (
             ("sample_union", sample_union, sample_union_plain, ua[1:],
              union_bytes(g, ua[1], ua[2], ua[3], ua[4].shape[1])),
             ("sample_masked", sample_masked, sample_masked_plain, ma[1:],
-             None)):
+             None),
+            ("sample_masked Q=129", sample_masked, sample_masked_plain,
+             [t[:129].contiguous() for t in ma[1:]], None)):
         got, want = kernel(g, *args), plain(g, *args)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
@@ -907,7 +917,7 @@ def check_walk_kernels(ds, g, torch, dev):
         least, by = bound(nbytes, 0)
         q = args[0].shape[0]
         found = ""
-        if name == "sample_masked":
+        if name.startswith("sample_masked"):
             deg = g.off[1:] - g.off[:-1]
             top = max(int(deg[v.long()].max()) for v in args[:2])
             found = (f", {int(got[4].sum())} of {q} found, "
@@ -916,7 +926,8 @@ def check_walk_kernels(ds, g, torch, dev):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
                           bound_by=by, library_ms=None)
         errs[name] = 0.0
-        say(f"  {name} Q={q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        say(f"  {name.split()[0]} Q={q}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, "
             f"bound {least:.5f} ms ({by}), bitwise equal{found}; eager "
             f"calls from the host {host:.4f} / {plain_host:.4f} ms; no "
             f"library call (no one PyTorch call samples a temporal CSR)")
@@ -929,6 +940,7 @@ def check_walk_kernels(ds, g, torch, dev):
         t = tgt.shape[1]
         out, cnt = walk_to_edge_fwd(ids, imp, tgt)
         ref = walk_to_edge_plain(ids, imp, tgt)
+        ref_cnt = walk_to_edge_count_plain(ids, imp, tgt)
         ct = torch.randn((b, t), generator=gen, device=dev)
         g_imp = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
         with torch.enable_grad():
@@ -938,6 +950,9 @@ def check_walk_kernels(ds, g, torch, dev):
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError("walk_to_edge differs from its plain version")
+        if not torch.equal(cnt, ref_cnt):
+            raise AssertionError("walk_to_edge: cnt differs from the plain "
+                                 "count")
         torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
         bwd_err = max(bwd_err, (g_imp - g_ref).abs().max().item())
         if not (out > 0).any():
@@ -948,12 +963,16 @@ def check_walk_kernels(ds, g, torch, dev):
                 leaf = imp.detach().requires_grad_()
                 return torch.autograd.grad(
                     walk_to_edge_plain(ids, leaf, tgt), [leaf], ct)
-        # ops: an integer compare, a select and a max per (target, slot);
-        # the backward two compares and an add: bound at the INT32 rate
+        # the forward reads the slots' ids and importances and the targets
+        # (4 bytes each) and writes out and cnt (8 bytes a target); its
+        # table does about 8 integer operations a slot (hash, insert, max,
+        # counts) and a target (hash, probe, selects), not the B * T * S
+        # compares. The backward: two compares and an add per (target,
+        # slot). Operations at the INT32 rate
         for name, fn, pfn, nbytes, ops in (
                 (f"walk_to_edge T={t}", lambda: walk_to_edge_fwd(ids, imp, tgt),
                  lambda: walk_to_edge_plain(ids, imp, tgt),
-                 b * s_len * 8 + b * t * 8, 3 * b * t * s_len),
+                 b * s_len * 8 + b * t * 12, 8 * b * (s_len + t)),
                 (f"walk_to_edge_bwd T={t}",
                  lambda: walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct),
                  plain_bwd, b * s_len * 12 + b * t * 8, 3 * b * t * s_len)):
@@ -968,7 +987,8 @@ def check_walk_kernels(ds, g, torch, dev):
                 f"call (scatter_reduce amax onto a dense table, then a "
                 f"gather: two calls)")
     errs["walk_to_edge"], errs["walk_to_edge_bwd"] = fwd_err, bwd_err
-    say(f"  walk_to_edge forward exactly equal; backward max abs err "
+    say(f"  walk_to_edge forward exactly equal, cnt equal to the plain "
+        f"count; backward max abs err "
         f"{bwd_err:.3e} (rtol 1e-5, atol 1e-5)")
     return rows, errs
 

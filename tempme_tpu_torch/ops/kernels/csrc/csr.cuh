@@ -82,6 +82,13 @@ __device__ __forceinline__ int warp_lower_bound(int lo, int hi,
   return lo;
 }
 
+// below(i) of a time cut: the event at i is strictly before t
+struct BeforeTime {
+  const float* ts;
+  float t;
+  __device__ bool operator()(int i) const { return ts[i] < t; }
+};
+
 // clip(floor(u * total), 0, total - 1) in float32, the product rounded by
 // __fmul_rn so that no contraction into an FMA changes a pick.
 __device__ __forceinline__ int uniform_pick(float u, int total) {

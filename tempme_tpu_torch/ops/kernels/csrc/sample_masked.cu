@@ -45,13 +45,6 @@ namespace {
 
 constexpr int kWarps = 4;  // queries a block
 
-// below(i) of a time-CSR cut: the event at i is strictly before t
-struct BeforeTime {
-  const float* ts;
-  float t;
-  __device__ bool operator()(int i) const { return ts[i] < t; }
-};
-
 // below(i) of the secondary CSR: (neighbour, time) at i is below (x, t);
 // both loads are issued before either is used
 struct BelowPair {
@@ -97,8 +90,8 @@ __global__ void sample_masked_kernel(
     const int v = lane < 16 ? na : nb;
     const int start = off[v];
     const int end = v == 0 || ec == 0 ? start : off[v + 1];
-    const int cnt = csr::warp_lower_bound<16>(start, end,
-                                              BeforeTime{ngh_ts, t_cut}) -
+    const int cnt = csr::warp_lower_bound<16>(
+                        start, end, csr::BeforeTime{ngh_ts, t_cut}) -
                     start;
     lo_a1 = __shfl_sync(0xffffffffu, start, 0);
     lo_b1 = __shfl_sync(0xffffffffu, start, 16);

@@ -7,12 +7,31 @@
 // the explainer's walk importance carried onto each support edge (0 where no
 // walk slot carries it; the 0 fill of the non-matching slots takes part in
 // the max). The [B, T, S] comparison tensor is never materialised: the
-// Pallas kernel keeps it in VMEM tiles, here it lives in registers.
+// Pallas kernel keeps it in VMEM tiles; here the forward never forms it and
+// the backward keeps it in registers.
 //
-// Forward: one block per batch row b. The row's S slot ids and importances
-// are staged in shared memory; each thread takes targets t, takes the max
-// over the S slots and counts the slots that attain it (cnt[b, t], the
-// number the backward divides by).
+// Forward: fewer steps than compares. A block takes one row and up to 256
+// of its targets, a thread each, and builds in shared memory a table of the
+// row's distinct slot ids (open addressing, linear probing, at least twice
+// the slots): an id's entry holds its slots' largest importance, kept as an
+// order-preserving integer by atomicMax, the number n of its slots and,
+// after a second pass over the slots, the number c of them that equal that
+// max. A target then takes one lookup: with n slots carrying its id at max
+// m, the S - n others hold the 0 fill, so
+//   out = n == S ? m : max(m, 0),
+//   cnt = [m == out] c + [out == 0] (S - n),
+// and out = 0, cnt = S where no slot carries it. Max and integer counts
+// do not depend on the order of the atomics, so out is the plain version's
+// max bit for bit and cnt (the number of slots that attain it, which the
+// backward divides by) is exact. The work is B * (S + T) steps in place of
+// the B * T * S compares; the table takes 20 bytes an entry and 4 a slot,
+// so a row of up to 4,096 slots fits a block's shared memory (the
+// explainer's rows hold 180). Each thread loads its target and its first
+// slot before the table is cleared, so those loads overlap the clearing.
+// (Measured slower: a group of 8 to 32 lanes scanning every slot for each
+// target and merging (max, count) pairs by shuffles, 2x at T 400; 1,024
+// targets a block, 10%; 128 threads a block, 30%; warp-aggregated
+// atomics by __match_any_sync, 2x.)
 //
 // Backward: the max's VJP as JAX's reduce-max defines it, which splits the
 // cotangent evenly over every slot that attains the max, non-matching slots
@@ -29,43 +48,120 @@
 // used, and the order of the sums is fixed: every launch on the same inputs
 // gives the same bits.
 //
-// Bound on the H100: the B * T * S compares at the card's integer rate,
-// about 1.3 us at the explainer's largest shape (B 100, S 180, T 400). Each
-// kernel moves only tens to hundreds of KB, and its chains of dependent
-// steps set its time: the forward's thread per target scans the S slots in
-// a row, the backward's warps at most 32 targets each up to T 256 and T / 8
-// above. Up to 8 warps a block keep the 600 blocks of the explainer's shape
-// in one wave on 132 SMs (13 warps at T 400 left room for 4 blocks an SM).
+// Bound on the H100: the forward moves each slot's id and importance and
+// each target once and writes out and cnt, about 0.6 MB at the explainer's
+// largest shape (B 100, S 180, T 400): 0.19 us at the card's memory rate;
+// its time is the chain of the table's three phases, each ended by a
+// barrier. The backward's bound is the B * T * S compares at the card's
+// integer rate, 1.3 us at that shape; it moves only hundreds of KB, and
+// its warps' chains of at most 32 targets each up to T 256 and T / 8
+// above set its time. Up to 8 warps a block keep the 600 blocks of the
+// explainer's shape in one wave on 132 SMs (13 warps at T 400 left room for
+// 4 blocks an SM).
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kFwdThreads = 256;  // and targets a block
+constexpr unsigned long long kEmpty = ~0ull;   // no id: ids are 32-bit
+
+// an int whose order is the float's order (-0 just below +0)
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_order_key(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// the row's table of distinct slot ids: open addressing, linear probing
+struct IdTable {
+  unsigned long long* keys;
+  int mask, shift;
+
+  __device__ unsigned home(int id) const {
+    return (static_cast<unsigned>(id) * 0x9e3779b1u) >> shift;
+  }
+  __device__ int insert(int id) const {
+    const unsigned long long k = static_cast<unsigned>(id);
+    for (unsigned e = home(id);; e = (e + 1) & mask) {
+      const unsigned long long prev = atomicCAS(&keys[e], kEmpty, k);
+      if (prev == kEmpty || prev == k) return static_cast<int>(e);
+    }
+  }
+  __device__ int find(int id) const {
+    const unsigned long long k = static_cast<unsigned>(id);
+    for (unsigned e = home(id);; e = (e + 1) & mask) {
+      const unsigned long long cur = keys[e];
+      if (cur == k) return static_cast<int>(e);
+      if (cur == kEmpty) return -1;
+    }
+  }
+};
 
 __global__ void w2e_fwd_kernel(const int* __restrict__ ids,
                                const float* __restrict__ imp,
                                const int* __restrict__ tgt, int s_len,
-                               int t_len, float* __restrict__ out,
+                               int t_len, int log2_h, float* __restrict__ out,
                                int* __restrict__ cnt) {
-  extern __shared__ unsigned char smem[];
-  int* sid = reinterpret_cast<int*>(smem);
-  float* simp = reinterpret_cast<float*>(sid + s_len);
+  extern __shared__ unsigned long long smem64[];
+  const int h = 1 << log2_h;
+  const IdTable table{smem64, h - 1, 32 - log2_h};
+  int* top = reinterpret_cast<int*>(smem64 + h);  // [h] order key of the max
+  int* n_id = top + h;                            // [h] slots with the id
+  int* n_top = n_id + h;                          // [h] slots at the max
+  int* slot_e = n_top + h;                        // [s_len] slot's entry
   const long long b = blockIdx.x;
-  for (int s = threadIdx.x; s < s_len; s += blockDim.x) {
-    sid[s] = ids[b * s_len + s];
-    simp[s] = imp[b * s_len + s];
+  const int t = blockIdx.y * kFwdThreads + threadIdx.x;
+  // this thread's target and first slot, loaded before the table is cleared
+  const int x = t < t_len ? tgt[b * t_len + t] : 0;
+  const bool own = threadIdx.x < s_len;
+  const int id0 = own ? ids[b * s_len + threadIdx.x] : 0;
+  const float w0 = own ? imp[b * s_len + threadIdx.x] : 0.0f;
+  for (int e = threadIdx.x; e < h; e += kFwdThreads) {
+    smem64[e] = kEmpty;
+    top[e] = INT_MIN;
+    n_id[e] = 0;
+    n_top[e] = 0;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < t_len; t += blockDim.x) {
-    const int x = tgt[b * t_len + t];
-    float mx = __int_as_float(static_cast<int>(0xff800000u));  // -inf
-    for (int s = 0; s < s_len; ++s)
-      mx = fmaxf(mx, sid[s] == x ? simp[s] : 0.0f);
-    int c = 0;
-    for (int s = 0; s < s_len; ++s) c += (sid[s] == x ? simp[s] : 0.0f) == mx;
-    out[b * t_len + t] = mx;
-    cnt[b * t_len + t] = c;
+  for (int s = threadIdx.x; s < s_len; s += kFwdThreads) {
+    const bool first = s == threadIdx.x;
+    const int e = table.insert(first ? id0 : ids[b * s_len + s]);
+    slot_e[s] = e;
+    atomicMax(&top[e], order_key(first ? w0 : imp[b * s_len + s]));
+    atomicAdd(&n_id[e], 1);
   }
+  __syncthreads();
+  for (int s = threadIdx.x; s < s_len; s += kFwdThreads) {
+    const int e = slot_e[s];
+    const float w = s == threadIdx.x ? w0 : imp[b * s_len + s];
+    if (w == from_order_key(top[e])) atomicAdd(&n_top[e], 1);
+  }
+  __syncthreads();
+  if (t >= t_len) return;
+  // the matching slots' max m_id, reached by c_id of their n slots; the
+  // S - n others hold the 0 fill
+  const int e = table.find(x);
+  const int n = e < 0 ? 0 : n_id[e];
+  float m = 0.0f;
+  int c = s_len - n;
+  if (n > 0) {
+    const float m_id = from_order_key(top[e]);
+    const int c_id = n_top[e];
+    if (n == s_len) {
+      m = m_id;
+      c = c_id;
+    } else {
+      m = fmaxf(m_id, 0.0f);
+      c = (m_id == m ? c_id : 0) + (m == 0.0f ? s_len - n : 0);
+    }
+  }
+  out[b * t_len + t] = m;
+  cnt[b * t_len + t] = c;
 }
 
 constexpr int kBwdMaxWarps = 8;
@@ -127,14 +223,20 @@ extern "C" int w2e_fwd_launch(const void* ids, const void* imp,
                               const void* tgt, int b, int s_len, int t_len,
                               void* out, void* cnt, void* stream) {
   if (b > 0 && t_len > 0) {
-    const size_t smem = sizeof(int) * s_len + sizeof(float) * s_len;
+    int log2_h = 1;  // a table of at least twice the slots
+    while ((1 << log2_h) < 2 * s_len) ++log2_h;
+    const size_t h = size_t{1} << log2_h;
+    const size_t smem = (sizeof(unsigned long long) + 3 * sizeof(int)) * h +
+                        sizeof(int) * s_len;
     const int err = set_smem(reinterpret_cast<const void*>(w2e_fwd_kernel),
                              smem);
     if (err != 0) return err;
-    w2e_fwd_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(b, (t_len + kFwdThreads - 1) / kFwdThreads);
+    w2e_fwd_kernel<<<grid, kFwdThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(ids), static_cast<const float*>(imp),
-        static_cast<const int*>(tgt), s_len, t_len, static_cast<float*>(out),
-        static_cast<int*>(cnt));
+        static_cast<const int*>(tgt), s_len, t_len, log2_h,
+        static_cast<float*>(out), static_cast<int*>(cnt));
   }
   return static_cast<int>(cudaGetLastError());
 }

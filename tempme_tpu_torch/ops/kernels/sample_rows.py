@@ -121,11 +121,15 @@ def sample_rows(g, nodes, times, u, eids=None):
 sample_rows.launches = 0
 
 
-def _lib():
-    lib = _build.load("sample_rows")
+def _typed(lib):
+    """``lib`` with the launcher's argument and result types set."""
     fn = lib.sample_rows_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 4 + [p] * 4
         fn.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return _typed(_build.load("sample_rows"))

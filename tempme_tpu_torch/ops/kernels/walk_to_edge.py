@@ -31,6 +31,16 @@ def walk_to_edge_plain(ids, imp, tgt):
     return torch.where(eq, imp[:, None, :], 0.0).amax(dim=-1)
 
 
+def walk_to_edge_count_plain(ids, imp, tgt):
+    """The plain form of the forward kernel's ``cnt``: for each target, the
+    number of slots whose value (the importance where the id matches, else
+    the 0 fill) equals the max. int32 [B, T]."""
+    eq = tgt[:, :, None] == ids[:, None, :]
+    scores = torch.where(eq, imp[:, None, :], 0.0)
+    return (scores == scores.amax(dim=-1, keepdim=True)).sum(
+        dim=-1, dtype=torch.int32)
+
+
 def _check(ids, imp, tgt):
     if ids.dim() != 2 or ids.dtype != torch.int32 or imp.shape != ids.shape \
             or imp.dtype != torch.float32:

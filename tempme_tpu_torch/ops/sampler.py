@@ -10,7 +10,7 @@ events' uniforms (``WalkDraws``). On the card the draws come from a
 ``torch.Generator`` (``train/loops.py::draw_support``, ``draw_walks``).
 
 The sampling itself is three kernels (``ops/kernels``): ``sample_rows``
-(the bisect, the picks and the three gathers in one launch per hop; its
+(the cut's search, the picks and the three gathers in one launch per hop; its
 plain version holds ``cut_by_time``, ``cut_by_edge`` and ``uniform_pick``),
 ``sample_union`` (a walk's second event) and ``sample_masked`` (its third).
 """

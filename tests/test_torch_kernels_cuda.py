@@ -4,7 +4,7 @@ the launches of one TGN train step and one explainer train and eval step.
 Skipped where there is no CUDA device (the check is made inside the
 fixture, when the test runs). ``sample_rows``, ``sample_union`` and
 ``sample_masked`` must be bit-identical, and ``walk_to_edge``'s forward
-exactly equal; ``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol
+exactly equal (its ``cnt`` equal to ``walk_to_edge_count_plain``); ``attend`` and ``attend_drop`` agree to rtol 1e-5 and atol
 1e-6 (float32 sums in another order), ``attend_bwd`` to rtol 1e-5 and atol
 1e-5 (its sums run over up to n * dk terms; the explain weight's gradient
 too), ``walk_to_edge``'s backward to rtol 1e-5, atol 1e-5 (each slot
@@ -35,10 +35,9 @@ from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
                                                       sample_rows_plain)
 from tempme_tpu_torch.ops.kernels.sample_union import (sample_union,
                                                        sample_union_plain)
-from tempme_tpu_torch.ops.kernels.walk_to_edge import (walk_to_edge,
-                                                       walk_to_edge_bwd,
-                                                       walk_to_edge_fwd,
-                                                       walk_to_edge_plain)
+from tempme_tpu_torch.ops.kernels.walk_to_edge import (
+    walk_to_edge, walk_to_edge_bwd, walk_to_edge_count_plain,
+    walk_to_edge_fwd, walk_to_edge_plain)
 from tempme_tpu_torch.train import learn_tgn as T
 from tempme_tpu_torch.train import loops as L
 
@@ -322,16 +321,17 @@ HUB, PROBES = 1, {50: 1, 51: 31, 52: 32, 53: 33}   # node: degree
 NO_EVENTS = 54
 
 
-def hub_events(hub_degree, num_times, num_background, seed):
+def hub_events(hub_degree, num_times, num_background, seed, probes=PROBES):
     """A stream with one hub: ``hub_degree`` events of node 1, most of them
     with neighbour 2 or 3 (long runs of one neighbour in the secondary CSR)
-    at ``num_times`` distinct timestamps (many events at each); nodes 50-53
-    of degree 1, 31, 32 and 33, all with neighbour 4; node 54 without
-    events; ``num_background`` events among nodes 2-40. Returns the numpy
-    arrays (src, dst, ts, label, e_idx), in time order."""
+    at ``num_times`` distinct timestamps (many events at each); the
+    ``probes`` nodes ({node: degree}; by default 50-53 of degree 1, 31, 32
+    and 33), all with neighbour 4; node 54 without events;
+    ``num_background`` events among nodes 2-40. Returns the numpy arrays
+    (src, dst, ts, label, e_idx), in time order."""
     r = np.random.RandomState(seed)
     hub_ngh = r.choice([2, 3, 5], hub_degree, p=[0.6, 0.3, 0.1])
-    probe_src = np.concatenate([np.full(d, v) for v, d in PROBES.items()])
+    probe_src = np.concatenate([np.full(d, v) for v, d in probes.items()])
     src = np.concatenate([np.full(hub_degree, HUB), probe_src,
                           r.randint(2, 41, num_background)])
     dst = np.concatenate([hub_ngh, np.full(len(probe_src), 4),
@@ -397,6 +397,54 @@ def test_sample_masked_kernel_bitwise_on_a_hub(cuda, q):
     assert found[0]
     if q > 1:
         assert found[wild].any() and found[~wild].any() and not found.all()
+
+
+# sample_rows' probe nodes: degrees at the edges of a 31-lane group's
+# rounds (a slice of at most 31 events is tested whole; 32^2 = 1,024),
+# beside the hub's 5,000 (3 rounds)
+ROW_PROBES = {50: 1, 51: 31, 52: 32, 53: 33, 55: 30, 56: 1023, 57: 1024}
+
+
+@pytest.mark.parametrize("q", [1, 100, 2000, 5120])
+@pytest.mark.parametrize("n", [1, 20, 33])
+@pytest.mark.parametrize("edge_cut", [False, True])
+def test_sample_rows_kernel_bitwise_on_a_hub(cuda, q, n, edge_cut):
+    """Queries on the hub, the probe nodes, the node without events, node 0
+    and others; cuts at the hub's own timestamps (repeated many times),
+    anywhere, and at 0; edge cuts at the hub's events, anywhere, or edge
+    0. n 33 takes more draws than a warp has lanes."""
+    src, dst, ts, label, e_idx = hub_events(5000, 200, 2000, seed=13,
+                                            probes=ROW_PROBES)
+    g = build_temporal_graph(EventStream(src, dst, ts, label, e_idx),
+                             num_nodes=60, device=cuda)
+    deg = (g.off[1:] - g.off[:-1]).cpu().numpy()
+    assert deg[HUB] == 5000 and deg[NO_EVENTS] == 0
+    assert [deg[v] for v in ROW_PROBES] == list(ROW_PROBES.values())
+    r = np.random.RandomState(q + n)
+    special = np.array([0, HUB, NO_EVENTS, *ROW_PROBES])
+    nodes = np.where(r.rand(q) < 0.4, HUB,
+                     np.where(r.rand(q) < 0.6, r.choice(special, q),
+                              r.randint(0, 60, q))).astype(np.int32)
+    hub_rows = np.flatnonzero(src == HUB)
+    times = np.where(r.rand(q) < 0.5, ts[r.choice(hub_rows, q)],
+                     r.rand(q) * 220).astype(np.float32)
+    times[r.rand(q) < 0.05] = 0.0
+    eids = np.where(r.rand(q) < 0.5, e_idx[r.choice(hub_rows, q)],
+                    r.randint(0, len(src) + 1, q)).astype(np.int32)
+    eids[r.rand(q) < 0.05] = 0
+    u = r.rand(q, n).astype(np.float32)
+    nodes, times, eids, u = (torch.from_numpy(x).to(cuda)
+                             for x in (nodes, times, eids, u))
+    e = eids if edge_cut else None
+    before = sample_rows.launches
+    got = sample_rows(g, nodes, times, u, e)
+    want = sample_rows_plain(g, nodes, times, u, e)
+    torch.cuda.synchronize()
+    assert sample_rows.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if q > 1:
+        assert got[0].any() and not got[0].all()
 
 
 @pytest.mark.parametrize("b,s,t", [(100, 180, 20), (100, 180, 400),
@@ -465,6 +513,54 @@ def test_walk_to_edge_bwd_is_deterministic(cuda, t):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert (first != 0).any()
+
+
+def _count_rows(b, s, t, seed):
+    """``b`` rows of walk slots and targets: ids in a small range with
+    importances of both signs, a row of ties at a negative value, a row
+    whose matching slots all hold 0, a row whose targets match nothing, and
+    the padding-heavy rows of ``_padded_walks`` (id 0 on about 80% of both
+    sides)."""
+    r = np.random.RandomState(seed)
+    ids = r.randint(0, 12, (b, s)).astype(np.int32)
+    tgt = r.randint(0, 16, (b, t)).astype(np.int32)
+    imp = (r.rand(b, s) - 0.5).astype(np.float32)
+    imp[0, :] = -0.25                   # every matching slot below the fill
+    imp[1, :] = 0.0                     # matching slots tie with the fill
+    tgt[2, :] = 99                      # no target matches a slot
+    pad_ids, pad_imp, pad_tgt, _ = _padded_walks(s, t, seed)
+    k = min(16, b - 3)
+    ids[3:3 + k], imp[3:3 + k] = pad_ids[:k].numpy(), pad_imp[:k].numpy()
+    tgt[3:3 + k] = pad_tgt[:k].numpy()
+    return (torch.from_numpy(ids), torch.from_numpy(imp),
+            torch.from_numpy(tgt), torch.from_numpy(
+                r.randn(b, t).astype(np.float32)))
+
+
+@pytest.mark.parametrize("s", [1, 7, 33, 180, 600, 1300])
+@pytest.mark.parametrize("t", [1, 20, 33, 400, 1000, 2100])
+@pytest.mark.parametrize("b", [20, 100])
+def test_walk_to_edge_fwd_count_matches_plain(cuda, s, t, b):
+    """The forward's ``out`` bit for bit and ``cnt`` exactly, at slot
+    counts from one to a table beyond 48 KB of shared memory (S 1,300) and
+    target counts from one to more than a few blocks' 256 (T 2,100); the
+    backward to rtol 1e-5, atol 1e-5 on that ``cnt`` up to T 1,000. (At T
+    2,100 a slot sums up to 2,100 shares, in another order than the plain
+    version's, and float32 rounding reaches 1.5e-5; the case is there for
+    the forward.)"""
+    ids, imp, tgt, ct = (x.to(cuda) for x in _count_rows(b, s, t, seed=s * t))
+    out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+    g_imp = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
+    leaf = imp.clone().requires_grad_()
+    ref = walk_to_edge_plain(ids, leaf, tgt)
+    (g_ref,) = torch.autograd.grad(ref, [leaf], ct)
+    ref_cnt = walk_to_edge_count_plain(ids, imp, tgt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.detach())
+    assert torch.equal(cnt, ref_cnt)
+    assert (cnt[2] == s).all() and not out[2].any()
+    if t <= 1000:
+        torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
 
 
 def test_explainer_steps_launch_counts(cuda):
