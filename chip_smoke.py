@@ -877,7 +877,7 @@ def check_walk_kernels(ds, g, torch, dev):
     """The three walk kernels against their plain versions at the
     explainer's shapes, on inputs captured from its own sampling and
     forward: ``sample_union`` at Q = 2,000 x 3 draws and ``sample_masked``
-    at Q = 6,000 (and its first 129 queries) bitwise; ``walk_to_edge`` at
+    at Q = 6,000 (each also on its first 129 queries) bitwise; ``walk_to_edge`` at
     [100, 180] slots against [100, 20] (hop 0) and [100, 400] (hop 1)
     targets, the forward exactly (``out`` and ``cnt``) and its backward to
     rtol 1e-5, atol 1e-5 (each slot sums its share over up to T targets, in
@@ -894,11 +894,14 @@ def check_walk_kernels(ds, g, torch, dev):
     rows, errs = {}, {}
     (ua,) = rec["sample_union"][:1]
     (ma,) = rec["sample_masked"][:1]
-    # sample_masked also on its first 129 queries, the shape of
-    # tools/walk_ab.py's second row
+    # each also on its first 129 queries, the shape of tools/walk_ab.py's
+    # latency-floor rows
+    ua129 = [t[:129].contiguous() for t in ua[1:]]
     for name, kernel, plain, args, nbytes in (
             ("sample_union", sample_union, sample_union_plain, ua[1:],
-             union_bytes(g, ua[1], ua[2], ua[3], ua[4].shape[1])),
+             union_bytes(g, *ua[1:4], ua[4].shape[1])),
+            ("sample_union Q=129", sample_union, sample_union_plain, ua129,
+             union_bytes(g, *ua129[:3], ua[4].shape[1])),
             ("sample_masked", sample_masked, sample_masked_plain, ma[1:],
              None),
             ("sample_masked Q=129", sample_masked, sample_masked_plain,
@@ -916,7 +919,10 @@ def check_walk_kernels(ds, g, torch, dev):
         plain_ms, plain_host = time_ms(lambda: plain(g, *args))
         least, by = bound(nbytes, 0)
         q = args[0].shape[0]
-        found = ""
+        shape, found = f"Q={q}", ""
+        if name.startswith("sample_union"):
+            shape += (f" x {args[3].shape[1]} (a warp a query, both cuts as "
+                      f"17-ary lower bounds, a pick a lane)")
         if name.startswith("sample_masked"):
             deg = g.off[1:] - g.off[:-1]
             top = max(int(deg[v.long()].max()) for v in args[:2])
@@ -926,7 +932,7 @@ def check_walk_kernels(ds, g, torch, dev):
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
                           bound_by=by, library_ms=None)
         errs[name] = 0.0
-        say(f"  {name.split()[0]} Q={q}: kernel {ms:.4f} ms, plain "
+        say(f"  {name.split()[0]} {shape}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, "
             f"bound {least:.5f} ms ({by}), bitwise equal{found}; eager "
             f"calls from the host {host:.4f} / {plain_host:.4f} ms; no "

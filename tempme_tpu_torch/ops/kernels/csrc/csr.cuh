@@ -3,44 +3,12 @@
 // off[v]:off[v+1] of (ngh_node, ngh_eid, ngh_ts), sorted by time; the
 // secondary arrays (bynb_ngh, bynb_eid, bynb_ts) hold the same slices sorted
 // by (neighbour, time). Each lookup is a search, a chain of dependent loads:
-// its cost is latency, not bandwidth. A thread bisects alone
-// (lower_bound_ts, log2(degree) loads); a warp's lane groups search
-// together, W pivots a round (warp_lower_bound, log_{W+1}(degree) rounds).
+// its cost is latency, not bandwidth. A warp's lane groups search together,
+// W pivots a round (warp_lower_bound, log_{W+1}(degree) rounds where a
+// bisect takes log2(degree) loads).
 #pragma once
 
 namespace csr {
-
-// First index in [lo, hi) whose timestamp is not below t (bisect_left): the
-// count of node v's events strictly before t is the result minus off[v].
-__device__ __forceinline__ int lower_bound_ts(const float* __restrict__ ts,
-                                             int lo, int hi, float t) {
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (ts[mid] < t) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// The e-path cut of ops/sampler.py cut_by_edge: node v's events strictly
-// before edge e's timestamp. Ids are clamped to the tables, as the
-// reference's gathers clamp; node 0 or edge 0 (padding) forces an empty cut.
-struct Cut {
-  int start;  // off[v]
-  int count;  // events strictly before the cut time
-};
-
-__device__ __forceinline__ Cut edge_cut(const int* __restrict__ off,
-                                        const float* __restrict__ ngh_ts,
-                                        const float* __restrict__ edge_ts,
-                                        int node, int eid, int num_nodes,
-                                        int num_edges) {
-  const int v = min(max(node, 0), num_nodes - 1);
-  const int e = min(max(eid, 0), num_edges - 1);
-  const int start = off[v];
-  if (v == 0 || e == 0) return Cut{start, 0};
-  return Cut{start, lower_bound_ts(ngh_ts, start, off[v + 1], edge_ts[e]) -
-                        start};
-}
 
 // A warp's lane groups each search their own range at the same time: lanes
 // [g * W, g * W + W) find the first index in [lo, hi) at which below(i) is

@@ -15,14 +15,15 @@
 // One warp per query (node_a, node_b, eid_cut, va1, va2, vb1, wildcard, u).
 // The candidates are
 //   * wildcard rows: every event of a's and b's histories strictly before
-//     edge eid_cut's time: two time lower bounds (the cut of
-//     csr::edge_cut), searched together by two groups of 16 lanes;
+//     edge eid_cut's time: two time lower bounds (the e-path cut of
+//     ops/sampler.py cut_by_edge), searched together by two groups of 16
+//     lanes;
 //   * other rows: a's events with neighbour va1 or va2 and b's events with
 //     neighbour vb1, before the same time: three (neighbour, time) ranges of
 //     the secondary CSR, each two lower bounds, the six searched together
 //     by six groups of 5 lanes;
 // a side is empty where its node or eid_cut is 0 (the clamped ids on
-// wildcard rows, as csr::edge_cut has it, the given ones on the others).
+// wildcard rows, clamped to the tables, the given ones on the others).
 // With m_a and m_b the two sides' counts, r = clip(floor(u * (m_a + m_b)),
 // 0, total - 1) picks a's candidate r or b's candidate r - m_a, read from
 // ngh_* (wildcard rows) or bynb_* (the others). Nothing is read where no

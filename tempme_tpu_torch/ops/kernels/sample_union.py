@@ -2,7 +2,12 @@
 
 Replaces the TPU kernel ``tempme_tpu/ops/pallas/sample_kernel.py``
 (``_sample_union_kernel``, entry ``sample_union``); the kernel is
-``csrc/sample_union.cu``, whose note gives its design and its bound.
+``csrc/sample_union.cu``, whose note gives its design and its bound. It runs
+a warp per query: lanes 0-15 and 16-31 search the two histories' cuts at the
+same time as 17-ary lower bounds, and lane j makes pick j, the lanes storing
+to consecutive addresses. Its bound is bytes (the ids, offsets, a bisect's
+probes a side, the draws, the picked entries and the outputs); its time is
+one query's chain of dependent loads.
 
 For each query (node_a, node_b, eid_cut) it draws ``n`` events uniformly,
 with replacement, from the union of the two nodes' histories strictly
@@ -86,11 +91,15 @@ def sample_union(g, node_a, node_b, eid_cut, u):
 sample_union.launches = 0
 
 
-def _lib():
-    lib = _build.load("sample_union")
+def _typed(lib):
+    """``lib`` with the launcher's argument and result types set."""
     fn = lib.sample_union_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 4 + [p] * 5
         fn.restype = ctypes.c_int
     return lib
+
+
+def _lib():
+    return _typed(_build.load("sample_union"))

@@ -1,14 +1,15 @@
-"""Time this checkout's walk kernels (``sample_rows``, ``sample_masked``,
-``walk_to_edge`` and its backward) against another build of them, in turns,
-on one card.
+"""Time this checkout's walk kernels (``sample_rows``, ``sample_union``,
+``sample_masked``, ``walk_to_edge`` and its backward) against another build
+of them, in turns, on one card.
 
     python3 -m tempme_tpu_torch.tools.walk_ab OTHER_CSRC [--json PATH]
 
-``OTHER_CSRC`` is a directory with a ``sample_rows.cu`` and a
-``sample_masked.cu`` (and the ``csr.cuh`` they include) and a
-``walk_to_edge.cu`` that export the same launchers
-(``sample_rows_launch``, ``sample_masked_launch``, ``w2e_fwd_launch``,
-``w2e_bwd_launch``), for example an earlier commit's
+``OTHER_CSRC`` is a directory with a ``sample_rows.cu``, a
+``sample_union.cu`` and a ``sample_masked.cu`` (and the ``csr.cuh`` they
+include) and a ``walk_to_edge.cu`` that export the same launchers
+(``sample_rows_launch``, ``sample_union_launch``,
+``sample_masked_launch``, ``w2e_fwd_launch``, ``w2e_bwd_launch``), for
+example an earlier commit's
 ``tempme_tpu_torch/ops/kernels/csrc`` unpacked with ``git archive``. They
 are built and timed by ``tools/ab.py``; this checkout's are built as the
 port builds them.
@@ -20,8 +21,9 @@ importances of a TempME explainer with seeded weights; and one serving
 step's support at batch 256 (``capture_support_rows``). ``sample_rows``
 runs at the explainer's hop 0 (Q 100, the time cut of the negative side)
 and hop 1 (Q 2,000, edge cut) and at serving's hop 1 (Q 5,120, edge cut);
-``sample_masked`` at Q 6,000 (one side's walk event 3) and on its first 129
-queries; ``walk_to_edge``'s forward and backward at [100, 180] slots
+``sample_union`` at Q 2,000 x 3 draws (one side's walk event 2) and on its
+first 129 queries; ``sample_masked`` at Q 6,000 (one side's walk event 3)
+and on its first 129 queries; ``walk_to_edge``'s forward and backward at [100, 180] slots
 against [100, 20] (hop 0) and [100, 400] (hop 1) targets, the backward
 with a seeded cotangent and ``out`` and ``cnt`` from this checkout's
 forward. Each build's outputs are first held against the plain PyTorch
@@ -47,6 +49,7 @@ import torch
 from ..ops.kernels import _build
 from ..ops.kernels import sample_masked as SM
 from ..ops.kernels import sample_rows as SR
+from ..ops.kernels import sample_union as SU
 from ..ops.kernels import walk_to_edge as WE
 from . import ab
 
@@ -172,6 +175,28 @@ def rows_case(g, nodes, times, u, eids):
                 launch_args)
 
 
+def union_case(g, args):
+    """One sample_union call on the captured tensors ``args`` (node_a,
+    node_b, eid_cut, u)."""
+    q, n = args[-1].shape
+
+    def make():
+        return [torch.empty((q, n), dtype=dt, device=g.device)
+                for dt in (torch.int32, torch.int32, torch.int32,
+                           torch.float32)]
+
+    def launch_args(outs):
+        return (g.off.data_ptr(), g.ngh_node.data_ptr(),
+                g.ngh_eid.data_ptr(), g.ngh_ts.data_ptr(),
+                g.edge_ts.data_ptr(), *(t.data_ptr() for t in args), q, n,
+                g.num_nodes, g.num_edges, *(o.data_ptr() for o in outs))
+
+    def plain():
+        return SU.sample_union_plain(g, *args)
+    return Case("sample_union", "sample_union_launch", plain, plain, make,
+                launch_args)
+
+
 def masked_case(g, args):
     """One sample_masked call on the captured tensors ``args``."""
     q = args[-1].shape[0]
@@ -254,11 +279,15 @@ def main(argv=None):
                              device=dev)
     rec = capture_walk_inputs(ds, g, dev, seed=SEED)
     serve_rows = capture_support_rows(ds, g, dev, seed=SEED)
+    union = rec["sample_union"][0][1:]
     masked = rec["sample_masked"][0][1:]
     explain_rows = rec["sample_rows"]
     cases = [("sample_rows", "Q=100", rows_case(*explain_rows[4])),
              ("sample_rows", "Q=2000", rows_case(*explain_rows[1])),
              ("sample_rows", "Q=5120", rows_case(*serve_rows[1])),
+             ("sample_union", "Q=2000", union_case(g, union)),
+             ("sample_union", "Q=129",
+              union_case(g, [t[:129].contiguous() for t in union])),
              ("sample_masked", "Q=6000", masked_case(g, masked)),
              ("sample_masked", "Q=129",
               masked_case(g, [t[:129].contiguous() for t in masked]))]
@@ -270,12 +299,13 @@ def main(argv=None):
         t = f"T={tgt.shape[1]}"
         cases += [("walk_to_edge", t, fwd_case(ids, imp, tgt)),
                   ("walk_to_edge_bwd", t, bwd_case(ids, imp, tgt, ct))]
-    this = {"sample_rows": SR._lib(), "sample_masked": SM._lib(),
-            "walk_to_edge": WE._lib()}
+    this = {"sample_rows": SR._lib(), "sample_union": SU._lib(),
+            "sample_masked": SM._lib(), "walk_to_edge": WE._lib()}
     rows = []
     with tempfile.TemporaryDirectory(prefix="walk_ab_") as tmp:
         other = ab.build_other(args.other_csrc, tuple(this), tmp)
         other = {"sample_rows": SR._typed(other["sample_rows"]),
+                 "sample_union": SU._typed(other["sample_union"]),
                  "sample_masked": SM._typed(other["sample_masked"]),
                  "walk_to_edge": WE._typed(other["walk_to_edge"])}
         for name, shape, case in cases:

@@ -447,6 +447,69 @@ def test_sample_rows_kernel_bitwise_on_a_hub(cuda, q, n, edge_cut):
         assert got[0].any() and not got[0].all()
 
 
+# sample_union's probe nodes: sample_rows' and the edges of a 16-lane
+# group's rounds (a slice of at most 16 events is tested whole; 17^2 = 289),
+# beside the hub's 5,000 (4 rounds)
+UNION_PROBES = {**ROW_PROBES, 58: 16, 59: 17, 60: 289, 61: 290}
+UNION_NODES = 64
+
+
+def union_queries(src, q, n, seed, probes=UNION_PROBES):
+    """sample_union's queries on ``hub_events``: nodes the hub (about 40%),
+    the probe nodes, the node without events, node 0 or any other; b equal
+    to a on about a fifth of the rows; edge cuts at the hub's own events
+    (their times repeat, so the cut falls on ties) or anywhere; node 0 and
+    edge 0 probes; query 0 the hub on both sides, cut at its last event.
+    Numpy (a, b, eid_cut, u [q, n])."""
+    r = np.random.RandomState(seed)
+    special = np.array([0, HUB, NO_EVENTS, *probes])
+
+    def nodes():
+        return np.where(r.rand(q) < 0.4, HUB,
+                        np.where(r.rand(q) < 0.6, r.choice(special, q),
+                                 r.randint(0, UNION_NODES, q))
+                        ).astype(np.int32)
+    a, b = nodes(), nodes()
+    same = r.rand(q) < 0.2
+    b[same] = a[same]
+    hub_eids = np.flatnonzero(src == HUB) + 1
+    e = np.where(r.rand(q) < 0.5, r.choice(hub_eids, q),
+                 r.randint(0, len(src) + 1, q)).astype(np.int32)
+    a[1:4] = 0
+    e[4:8] = 0
+    a[0], b[0], e[0] = HUB, HUB, hub_eids[-1]
+    return a, b, e, r.rand(q, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("q", [1, 129, 2000])
+@pytest.mark.parametrize("n", [1, 3, 32, 33, 40])
+def test_sample_union_kernel_bitwise_on_a_hub(cuda, q, n):
+    """Queries on the hub, nodes of degree 0-33, 289-290 and 1,023-1,024,
+    node 0 and others, a == b on a fifth of them; edge cuts at the hub's
+    own events (ties with its history), anywhere, or edge 0. n 1 is one
+    lane's pick, 32 a whole warp's, 33 and 40 more picks than lanes; no Q
+    is a multiple of a block's queries."""
+    src, dst, ts, label, e_idx = hub_events(5000, 200, 2000, seed=14,
+                                            probes=UNION_PROBES)
+    g = build_temporal_graph(EventStream(src, dst, ts, label, e_idx),
+                             num_nodes=UNION_NODES, device=cuda)
+    deg = (g.off[1:] - g.off[:-1]).cpu().numpy()
+    assert deg[HUB] == 5000 and deg[NO_EVENTS] == 0
+    assert [deg[v] for v in UNION_PROBES] == list(UNION_PROBES.values())
+    a, b, e, u = (torch.from_numpy(x).to(cuda)
+                  for x in union_queries(src, q, n, seed=q + n))
+    before = sample_union.launches
+    got = sample_union(g, a, b, e, u)
+    want = sample_union_plain(g, a, b, e, u)
+    torch.cuda.synchronize()
+    assert sample_union.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert got[1][0].all()
+    if q > 1:
+        assert not got[1][4:8].any() and not got[1].all()
+
+
 @pytest.mark.parametrize("b,s,t", [(100, 180, 20), (100, 180, 400),
                                    (3, 7, 5)])
 def test_walk_to_edge_kernels_match_plain(cuda, b, s, t):

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from tests.conftest import make_events
-from tests.test_torch_kernels_cuda import hub_events, hub_queries
+from tests.test_torch_kernels_cuda import (UNION_NODES, UNION_PROBES,
+                                           hub_events, hub_queries,
+                                           union_queries)
 from tests.test_torch_graph_sampler import (assert_same, jax_hop_draws,
                                             to_torch_events)
 from tests.test_torch_graph_sampler import one_torch_thread  # noqa: F401
@@ -90,6 +92,32 @@ def test_sample_union_plain_matches_jax_csr(graphs):
     for x, y in zip(port, sample_union(tg, _t(a), _t(b), _t(e), u)):
         assert torch.equal(x, y)
     assert not port[1][3:6].any() and port[1].any()
+
+
+def test_sample_union_plain_matches_jax_csr_on_a_hub():
+    """The same on a graph with a hub: 1,000 events of node 1 at 40
+    distinct times, edge cuts at the hub's own events (ties with its
+    history), nodes of degree 0-33, 289-290 and 1,023-1,024, a == b on a
+    fifth of the rows and 33 draws a query (the shapes the card's
+    ``sample_union`` is held to on a larger hub)."""
+    src, dst, ts, label, e_idx = hub_events(1000, 40, 300, seed=14,
+                                            probes=UNION_PROBES)
+    ev = JaxEventStream(src, dst, ts, label, e_idx)
+    jg = dataclasses.replace(jax_build_graph(ev, num_nodes=UNION_NODES),
+                             dense_ts=None, dense_node=None, dense_eid=None)
+    tg = build_temporal_graph(to_torch_events(ev), num_nodes=UNION_NODES,
+                              device="cpu")
+    q, n = 129, 33
+    a, b, e, _ = union_queries(src, q, n, seed=8)
+    assert (a == b).sum() > 10
+    key = jax.random.PRNGKey(9)
+    ref = JS._union_uniform_sample(jg, key, jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(e), n)
+    u = _t(jax.random.uniform(key, (q, n)))
+    port = sample_union_plain(tg, _t(a), _t(b), _t(e), u)
+    assert_same(port, ref)
+    ngh = port[1].numpy()
+    assert ngh[0].all() and not ngh[4:8].any() and not ngh.all()
 
 
 def test_sample_masked_plain_matches_jax_csr(graphs, events):
