@@ -36,8 +36,26 @@ script
    runs ``--eval_only`` on the saved explainer; holds one explainer train
    step and one eval step's ratio sweep on the card against the CPU
    (float32, same draws); traces 20 explainer train steps;
-7. prints one JSON line of kernel numbers, the card again, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. holds the kernels against their plain versions at the TGAT paths'
+   shapes too (3 layers, d_k 258 and the uslegis TGAT's 173, rows up to
+   40,000, ``sample_rows`` at hop 3) and at the sizes that once failed to
+   launch (``sample_rows`` at n 3,073 and 4,096, ``walk_to_edge`` at 4,097
+   and 8,192 slots a row);
+8. trains TGAT at ``learn_base.main``'s default flags (3 layers, 2 heads,
+   the deep-TGAT batch 32, width 172) for one epoch on the first 30,000
+   events of the stream, written as ``ml_wikishape30k`` (a cut of scale,
+   not of width), and checks the loss, the APs, the files and the launches
+   per step (each block's forward again in the backward: its blocks are
+   checkpointed); resumes the state of a run stopped at a mid-epoch
+   checkpoint; runs ``--eval_only`` on that TGAT and on the TGN of step 5,
+   each reproducing the test metrics its training run wrote; holds one
+   TGAT train step on the card against the CPU, and the committed uslegis
+   TGAT (read by the port's own msgpack reader) at float32 and bf16;
+   trains the explainer one epoch on the TGAT (3-hop supports, the sweep
+   in chunks of 4 ratios), resumes it, runs its ``--eval_only``; traces 20
+   TGAT train steps;
+9. prints its run time, one JSON line of kernel numbers, the card again,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
 the card-against-CPU checks run at float32 with the earlier tolerances,
@@ -58,6 +76,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 BATCH, N_DEGREE, SEED = 256, 20, 0
 DROPOUT, LR = 0.1, 1e-3
 REF_BATCH = 64                      # the card-vs-CPU train step's batch
@@ -571,19 +590,21 @@ def check_attend_train(torch, dev):
 DATA_NAME = "wikishape"
 
 
-def write_stream(ds_dir):
-    """The wikipedia-shaped stream in the ``ml_{name}`` CSV/NPY layout
-    that ``load_dataset`` reads."""
+def write_stream(ds_dir, name=DATA_NAME, num_events=None):
+    """The wikipedia-shaped stream (its first ``num_events`` events, all by
+    default) in the ``ml_{name}`` CSV/NPY layout that ``load_dataset``
+    reads."""
     import numpy as np
     from tempme_tpu_torch.data.synthetic import make_large_shaped
     ev, node_feat, edge_feat = make_large_shaped("wikipedia")
-    table = np.stack([np.arange(len(ev)), ev.src, ev.dst, ev.ts, ev.label,
-                      ev.e_idx], axis=1).astype(np.float64)
-    np.savetxt(os.path.join(ds_dir, f"ml_{DATA_NAME}.csv"), table,
+    k = num_events or len(ev)
+    table = np.stack([np.arange(k), ev.src[:k], ev.dst[:k], ev.ts[:k],
+                      ev.label[:k], ev.e_idx[:k]], axis=1).astype(np.float64)
+    np.savetxt(os.path.join(ds_dir, f"ml_{name}.csv"), table,
                fmt=["%d", "%d", "%d", "%.9g", "%.9g", "%d"], delimiter=",",
                header="index,u,i,ts,label,idx", comments="")
-    np.save(os.path.join(ds_dir, f"ml_{DATA_NAME}.npy"), edge_feat)
-    np.save(os.path.join(ds_dir, f"ml_{DATA_NAME}_node.npy"), node_feat)
+    np.save(os.path.join(ds_dir, f"ml_{name}.npy"), edge_feat[:k + 1])
+    np.save(os.path.join(ds_dir, f"ml_{name}_node.npy"), node_feat)
 
 
 def train_argv(ds_dir, out, *extra):
@@ -753,8 +774,8 @@ def train_steps_on(dev, ds, blob, compute_dtype):
 def check_train_against_cpu(ds, out, dev):
     """One train step at full width (batch 64) on the card and on the CPU
     from the trained checkpoint at float32, with the same draws (dropout
-    0.1 included)."""
-    import numpy as np
+    0.1 included): the same tolerances as ``compare_train_steps``, the
+    memory rtol 2e-4, atol 1e-5 (its flags exactly)."""
     import torch
     from tempme_tpu_torch.train import loops
     from tempme_tpu_torch.utils.checkpoint import load_checkpoint
@@ -773,43 +794,14 @@ def check_train_against_cpu(ds, out, dev):
     new_g, aux_g = step_g(mem_g, to_device(batch, dev),
                           to_device(draws, dev))
     torch.cuda.synchronize()
-    loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
-    if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
-        raise AssertionError(f"loss {loss_g} on the card, {loss_c} on CPU")
-    worst_g, worst_p, unsettled = 0.0, 0.0, 0
-    params_c = dict(step_c.model.named_parameters())
-    for name, p in step_g.model.named_parameters():
-        pc = params_c[name]
-        g_c, g_g = pc.grad, p.grad.cpu()
-        top = g_c.abs().max().item()
-        torch.testing.assert_close(g_g, g_c, rtol=1e-3, atol=1e-4 * top,
-                                   msg=lambda m: f"{name} grad: {m}")
-        worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
-                                                                    1e-30))
-        # Adam turns gradients that are round-off (terms that cancel in
-        # exact arithmetic) into steps of up to lr; hold the rest tightly
-        settled = g_c.abs() >= 1e-4 * top
-        unsettled += int((~settled).sum())
-        diff = (p.detach().cpu() - pc.detach()).abs()
-        if diff.max().item() > LR * 1.001:
-            raise AssertionError(f"{name}: params after Adam differ by "
-                                 f"{diff.max().item()}")
-        torch.testing.assert_close(p.detach().cpu()[settled],
-                                   pc.detach()[settled], rtol=1e-5,
-                                   atol=1e-6,
-                                   msg=lambda m: f"{name} param: {m}")
-        worst_p = max(worst_p, diff[settled].max().item()
-                      if settled.any() else 0.0)
+    compare_train_steps(step_c, aux_c, step_g, aux_g, "TGN train step")
     for name, a, b in zip(new_c._fields, new_g, new_c):
         if a.dtype == torch.bool:
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"memory {name} differs from the CPU")
         else:
             torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
-    say(f"  loss {loss_g:.7f} card, {loss_c:.7f} CPU; worst gradient error "
-        f"{worst_g:.3e} of its tensor's largest; worst settled param "
-        f"error after Adam {worst_p:.3e} ({unsettled} round-off-gradient "
-        f"entries held to lr); memory agrees")
+    say("  memory agrees")
 
 
 def profile_training(ds, out, dev, n_steps=20):
@@ -1032,18 +1024,23 @@ EXPLAIN_PER_STEP = {
                  attend_drop=0, attend_bwd=0)}
 
 
-def explain_argv(ds_dir, ckpt_dir, out, *extra):
-    return ["--data", DATA_NAME, "--data_dir", ds_dir, "--base_type", "tgn",
+def explain_argv(ds_dir, ckpt_dir, out, *extra, base_type="tgn",
+                 data=DATA_NAME):
+    return ["--data", data, "--data_dir", ds_dir, "--base_type", base_type,
             "--bs", str(EXPLAIN_BATCH), "--test_bs", str(EXPLAIN_BATCH),
             "--n_epoch", "1", "--seed", str(SEED), "--ckpt_dir", ckpt_dir,
             "--log_dir", os.path.join(out, "tb"),
             "--results_dir", os.path.join(out, "results"), *extra]
 
 
-def explain(ds, ds_dir, ckpt_dir, out, torch):
+def explain(ds, ds_dir, ckpt_dir, out, torch, base_type="tgn",
+            data=DATA_NAME, per_step=None, resume_step=EXPLAIN_RESUME_STEP):
     """One epoch of ``temp_exp_main.main`` at full width on the card, on
-    the TGN that [train] wrote: the main path of this slice. Returns
-    (launches, numbers)."""
+    the base that [train] (a TGN) or [tgat-train] wrote, with ``per_step``
+    launches of each kernel per train, eval and null-model step. Returns
+    (launches, numbers, results path, the mid-epoch state's snapshot)."""
+    per_step = per_step or EXPLAIN_PER_STEP
+    argv_kw = dict(base_type=base_type, data=data)
     import math
     import shutil
     import numpy as np
@@ -1056,7 +1053,7 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
              "null": min(50, len(split_events(
                  shuffled_events(ds.full, seed=SEED), ds.node_feat,
                  ds.edge_feat).test) // 10)}
-    want = {k: sum(EXPLAIN_PER_STEP[p][k] * n for p, n in steps.items())
+    want = {k: sum(per_step[p][k] * n for p, n in steps.items())
             for k in kernels}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1069,7 +1066,7 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
 
     def snapshotting_save(path, blob, meta=None):
         save(path, blob, meta=meta)
-        if meta and meta.get("step") == EXPLAIN_RESUME_STEP:
+        if meta and meta.get("step") == resume_step:
             shutil.copy(path, snapshot)
             shutil.copy(path + ".json", snapshot + ".json")
 
@@ -1080,7 +1077,7 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
         with contextlib.redirect_stdout(printed):
             best = temp_exp_main.main(explain_argv(
                 ds_dir, ckpt_dir, out, "--ckpt_every_steps",
-                str(EXPLAIN_RESUME_STEP)))
+                str(resume_step), **argv_kw))
     finally:
         temp_exp_main.save_checkpoint = save
     torch.cuda.synchronize()
@@ -1091,7 +1088,7 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
         say(f"    | {line}")
     say(f"  launches on the explainer's path: {launches} for "
         f"{steps['train']} train, {steps['eval']} eval and {steps['null']} "
-        f"null-model steps; per step {EXPLAIN_PER_STEP}")
+        f"null-model steps; per step {per_step}")
     check_launches(launches, want)
     tags = read_metrics(out)
     losses = tags["Train/step_loss"]
@@ -1118,9 +1115,10 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
                 "test_r_logit"):
         if not math.isfinite(numbers[key]):
             raise AssertionError(f"{key} is not finite")
-    ckpt = os.path.join(ckpt_dir, "explainer", "tgn", f"{DATA_NAME}.pt")
-    results = os.path.join(out, "results", f"explainer_tgn_{DATA_NAME}.json")
-    null = os.path.join(ckpt_dir, f"null_{DATA_NAME}_n{N_DEGREE}_s{SEED}.npy")
+    ckpt = os.path.join(ckpt_dir, "explainer", base_type, f"{data}.pt")
+    results = os.path.join(out, "results",
+                           f"explainer_{base_type}_{data}.json")
+    null = os.path.join(ckpt_dir, f"null_{data}_n{N_DEGREE}_s{SEED}.npy")
     for path in (ckpt, ckpt + ".json", ckpt + ".train_state", results, null,
                  snapshot):
         if not os.path.exists(path):
@@ -1145,11 +1143,13 @@ def explain(ds, ds_dir, ckpt_dir, out, torch):
     return launches, numbers, results, snapshot
 
 
-def explain_resume(ds_dir, ckpt_dir, out, snapshot):
+def explain_resume(ds_dir, ckpt_dir, out, snapshot, base_type="tgn",
+                   data=DATA_NAME, resume_step=EXPLAIN_RESUME_STEP):
     """``--resume`` to the end of the epoch from ``snapshot``, the state
-    the [explain] run wrote at its mid-epoch checkpoint (a run stopped right
-    after that checkpoint leaves exactly that state), in a fresh checkpoint
-    directory holding the base and the null distribution."""
+    the [explain] (or [tgat-explain]) run wrote at its mid-epoch checkpoint
+    (a run stopped right after that checkpoint leaves exactly that state),
+    in a fresh checkpoint directory holding the base and the null
+    distribution."""
     import shutil
     from tempme_tpu_torch.train import temp_exp_main
     mine = os.path.join(out, "params")
@@ -1157,21 +1157,21 @@ def explain_resume(ds_dir, ckpt_dir, out, snapshot):
                     os.path.join(mine, "tgnn"))
     for f in glob.glob(os.path.join(ckpt_dir, "null_*.npy")):
         shutil.copy(f, mine)
-    state = os.path.join(mine, "explainer", "tgn",
-                         f"{DATA_NAME}.pt.train_state")
+    state = os.path.join(mine, "explainer", base_type,
+                         f"{data}.pt.train_state")
     os.makedirs(os.path.dirname(state))
     shutil.copy(snapshot, state)
     shutil.copy(snapshot + ".json", state + ".json")
     with open(state + ".json") as f:
         meta = json.load(f)
-    if (meta["epoch"], meta["step"]) != (0, EXPLAIN_RESUME_STEP):
+    if (meta["epoch"], meta["step"]) != (0, resume_step):
         raise AssertionError(f"mid-epoch checkpoint meta {meta}")
     argv = explain_argv(ds_dir, mine, out, "--ckpt_every_steps",
-                        str(EXPLAIN_RESUME_STEP))
+                        str(resume_step), base_type=base_type, data=data)
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         best = temp_exp_main.main(argv + ["--resume"])
-    if f"at epoch 0 step {EXPLAIN_RESUME_STEP}" not in printed.getvalue():
+    if f"at epoch 0 step {resume_step}" not in printed.getvalue():
         raise AssertionError("the second run did not resume mid-epoch")
     for line in printed.getvalue().splitlines()[-6:]:
         say(f"    | {line}")
@@ -1181,13 +1181,15 @@ def explain_resume(ds_dir, ckpt_dir, out, snapshot):
         raise AssertionError(f"the resumed run did not finish: {meta}")
 
 
-def explain_eval_only(ds_dir, ckpt_dir, out, results):
+def explain_eval_only(ds_dir, ckpt_dir, out, results, base_type="tgn",
+                      data=DATA_NAME):
     """``--eval_only`` on the saved explainer: the test metrics of the
     best epoch again (within 1e-6)."""
     from tempme_tpu_torch.train import temp_exp_main
     with contextlib.redirect_stdout(io.StringIO()):
         ev = temp_exp_main.main(explain_argv(ds_dir, ckpt_dir, out,
-                                             "--eval_only"))
+                                             "--eval_only",
+                                             base_type=base_type, data=data))
     with open(results) as f:
         saved = json.load(f)
     worst = max(abs(ev[k] - saved[k]) for k in ev)
@@ -1356,6 +1358,573 @@ def profile_explainer(ds, ckpt_dir, dev, n_steps=20):
     profile_steps(run, n_steps)
 
 
+# ---------------------------------------------------------------------------
+# TGAT (3 layers, 2 heads, n_degree 20, width 172: d_k ceil(516 / 2) = 258)
+# on the first TGAT_EVENTS events of the wikipedia-shaped stream: a cut of
+# scale, not of width
+TGAT_EVENTS = 30_000
+TGAT_DATA = "wikishape30k"
+TGAT_BATCH = 32                      # the deep-TGAT batch rule's (not passed)
+TGAT_REF_BATCH = 8                   # the card-vs-CPU train step's batch
+TGAT_CKPT_STEP = 500                 # [tgat-train]'s mid-epoch checkpoint
+TGAT_EXPLAIN_RESUME_STEP = 100
+# launches per step: a train step samples 3 sides x 3 hops, embeds 4 times
+# (src twice, tgt, bgd) through 3 + 2 + 1 (layer, level) blocks in the
+# training form, recomputes each block in the backward (checkpointed
+# blocks) and runs each block's backward; an eval step embeds 4 times in
+# the eval form
+TGAT_PER_STEP = {
+    "train": dict(sample_rows=9, attend=0, attend_drop=48, attend_bwd=24),
+    "eval": dict(sample_rows=9, attend=24, attend_drop=0, attend_bwd=0)}
+# the explainer on the 3-layer TGAT: the base labels (24 attend) and runs
+# again explained (24), and the 5 blocks a call whose output the explain
+# weights reach (levels 0 and 1) are recomputed and differentiated (20
+# each); an eval step adds the sweep's 3 blocks of layers 1-2 a side in 4
+# chunks of 4 ratios (36); the null model samples 2 hops as for the TGN
+TGAT_EXPLAIN_PER_STEP = {
+    "train": dict(sample_rows=9, sample_union=3, sample_masked=3,
+                  walk_to_edge=6, walk_to_edge_bwd=6, attend=68,
+                  attend_drop=0, attend_bwd=20),
+    "eval": dict(sample_rows=9, sample_union=3, sample_masked=3,
+                 walk_to_edge=6, walk_to_edge_bwd=0, attend=84,
+                 attend_drop=0, attend_bwd=0),
+    "null": EXPLAIN_PER_STEP["null"]}
+USLEGIS_TGAT = "params/tgnn/tgat_uslegis_sampled.msgpack"
+
+
+def tgat_argv(ds_dir, out, *extra):
+    """``learn_base`` at its defaults (TGAT, 3 layers, the deep-TGAT batch
+    of 32, dropout 0.1, Adam lr 1e-3) on the cut stream, one epoch."""
+    return ["--data", TGAT_DATA, "--data_dir", ds_dir,
+            "--n_degree", str(N_DEGREE), "--n_epoch", "1",
+            "--seed", str(SEED),
+            "--out_dir", os.path.join(out, "params", "tgnn"),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def tgat_train(ds, ds_dir, out, torch):
+    """One epoch of ``learn_base.main --base_type tgat`` (its defaults) at
+    full width on the card; the run also writes a checkpoint at step
+    ``TGAT_CKPT_STEP``, copied as the state of a run stopped right there
+    ([tgat-resume] resumes it). Returns (launches, steps, numbers,
+    snapshot)."""
+    import math
+    import shutil
+    from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
+                                                     attend_drop)
+    from tempme_tpu_torch.ops.kernels.sample_rows import sample_rows
+    from tempme_tpu_torch.train import learn_base
+    kernels = {"sample_rows": sample_rows, "attend": attend,
+               "attend_drop": attend_drop, "attend_bwd": attend_bwd}
+    train_steps = len(ds.train) // TGAT_BATCH
+    eval_steps = math.ceil(len(ds.val) / TGAT_BATCH) + math.ceil(
+        len(ds.test) / TGAT_BATCH)
+    want = {k: TGAT_PER_STEP["train"][k] * train_steps
+            + TGAT_PER_STEP["eval"][k] * eval_steps for k in kernels}
+    save = learn_base.save_checkpoint
+    snapshot = os.path.join(out, "stopped.train_state")
+
+    def snapshotting_save(path, blob, meta=None):
+        save(path, blob, meta=meta)
+        if meta and meta.get("step") == TGAT_CKPT_STEP:
+            shutil.copy(path, snapshot)
+            shutil.copy(path + ".json", snapshot + ".json")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    learn_base.save_checkpoint = snapshotting_save
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            test_ap = learn_base.main(tgat_argv(
+                ds_dir, out, "--ckpt_every_steps", str(TGAT_CKPT_STEP)))
+    finally:
+        learn_base.save_checkpoint = save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    if f"layers=3 bs={TGAT_BATCH}" not in printed.getvalue():
+        raise AssertionError("the default flags did not give 3 layers at "
+                             f"batch {TGAT_BATCH}")
+    say(f"  launches on the TGAT training path: {launches} for "
+        f"{train_steps} train and {eval_steps} eval steps; per step "
+        f"{TGAT_PER_STEP}")
+    check_launches(launches, want)
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != train_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError("a TGAT train loss is missing or not finite")
+    tenth = max(1, train_steps // 10)
+    first, last = (sum(x) / len(x) for x in (losses[:tenth],
+                                              losses[-tenth:]))
+    eps = tags["Train/events_per_s"][0]
+    val_ap = tags["Val/ap"][0]
+    for name, ap in (("val", val_ap), ("test", test_ap)):
+        if not 0.0 <= ap <= 1.0:
+            raise AssertionError(f"TGAT {name} AP {ap} outside [0, 1]")
+    if test_ap != tags["Test/ap"][0]:
+        raise AssertionError("the returned test AP is not the logged one")
+    params = os.path.join(out, "params", "tgnn", f"tgat_{TGAT_DATA}.pt")
+    for path in (params, params + ".json", params + ".train_state",
+                 snapshot,
+                 os.path.join(out, "results", f"base_tgat_{TGAT_DATA}.json")):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {path}")
+    with open(params + ".json") as f:
+        meta = json.load(f)
+    if (meta["node_dim"], meta["n_layer"], meta["n_degree"]) != (
+            172, 3, N_DEGREE):
+        raise AssertionError(f"TGAT checkpoint meta {meta}")
+    numbers = dict(train_ms_per_step=TGAT_BATCH / eps * 1e3,
+                   events_per_s=eps, loss_first_tenth=first,
+                   loss_last_tenth=last, val_ap=val_ap, test_ap=test_ap,
+                   peak_gib=peak / 2 ** 30, wall_s=wall,
+                   train_steps=train_steps, eval_steps=eval_steps)
+    say(f"  {train_steps} steps: {numbers['train_ms_per_step']:.3f} "
+        f"ms/step, {eps:.1f} events/s (the driver's epoch clock); mean loss "
+        f"first tenth {first:.6f}, last tenth {last:.6f}; val AP "
+        f"{val_ap:.6f}, test AP {test_ap:.6f}; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; main() {wall:.2f} s with loading and "
+        f"eval")
+    if not last < first:
+        raise AssertionError("the TGAT loss did not fall over the epoch")
+    return launches, train_steps, numbers, snapshot
+
+
+def tgat_resume(ds_dir, out, snapshot):
+    """``--resume`` to the end of the epoch from the state [tgat-train]
+    wrote at its checkpoint of step ``TGAT_CKPT_STEP`` (what a run stopped
+    right after it leaves), in a fresh output directory: the same checks
+    as [resume]."""
+    import shutil
+    from tempme_tpu_torch.train import learn_base
+    state = os.path.join(out, "params", "tgnn",
+                         f"tgat_{TGAT_DATA}.pt.train_state")
+    os.makedirs(os.path.dirname(state))
+    shutil.copy(snapshot, state)
+    shutil.copy(snapshot + ".json", state + ".json")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if (meta["epoch"], meta["step"]) != (0, TGAT_CKPT_STEP):
+        raise AssertionError(f"mid-epoch checkpoint meta {meta}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ap = learn_base.main(tgat_argv(ds_dir, out, "--ckpt_every_steps",
+                                       str(TGAT_CKPT_STEP), "--resume"))
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    if f"at epoch 0 step {TGAT_CKPT_STEP}" not in printed.getvalue():
+        raise AssertionError(f"the run did not resume at step "
+                             f"{TGAT_CKPT_STEP}")
+    with open(state + ".json") as f:
+        meta = json.load(f)
+    if meta["epoch"] != 0 or "step" in meta or not 0.0 <= ap <= 1.0:
+        raise AssertionError(f"the resumed run did not finish: {meta}")
+
+
+def eval_only(argv, results, what):
+    """``learn_base --eval_only`` on a trained base: the test AP, AUC and
+    accuracy its training run wrote to ``results``, again (within 1e-6)."""
+    from tempme_tpu_torch.train import learn_base
+    with open(results) as f:
+        saved = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        test = learn_base.main(argv + ["--eval_only"])
+    worst = max(abs(test[k] - saved[k]) for k in ("ap", "auc", "acc"))
+    if not worst <= 1e-6:
+        raise AssertionError(f"{what} --eval_only gave {test}, its training "
+                             f"run wrote {saved}")
+    say(f"  {what}: test AP {test['ap']:.6f}, AUC {test['auc']:.6f}, acc "
+        f"{test['acc']:.6f} (training run: AP {saved['ap']:.6f}; max "
+        f"difference {worst:.3e})")
+
+
+def tgat_steps_on(dev, ds, blob, compute_dtype):
+    """The TGAT train step of the checkpoint ``blob`` on ``dev`` with the
+    projections in ``compute_dtype``: model (checkpointed blocks, as the
+    driver builds it) and Adam state loaded, train graph and features on
+    ``dev``."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.tgat import TGAT
+    from tempme_tpu_torch.train import loops
+    g = build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    model = TGAT(ds.node_feat.shape[1], ds.edge_feat.shape[1], num_layers=3,
+                 n_head=2, dropout=DROPOUT, remat=True, device=dev,
+                 compute_dtype=compute_dtype)
+    model.load_state_dict(blob["params"])
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    opt.load_state_dict(copy.deepcopy(blob["opt_state"]))
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    return loops.make_base_train_step(model, g, feats,
+                                      torch.from_numpy(dst).to(dev), 3,
+                                      N_DEGREE, opt)
+
+
+def compare_train_steps(step_c, aux_c, step_g, aux_g, what):
+    """Loss rtol 1e-4; gradients rtol 1e-3, atol 1e-4 of each tensor's
+    largest; params after Adam rtol 1e-5, atol 1e-6 where the gradient is
+    settled (at least 1e-4 of its tensor's largest), within lr elsewhere
+    (Adam turns round-off gradients into steps of up to lr)."""
+    import torch
+    loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
+    if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
+        raise AssertionError(f"{what}: loss {loss_g} on the card, {loss_c} "
+                             f"on the CPU")
+    worst_g, worst_p, unsettled = 0.0, 0.0, 0
+    params_c = dict(step_c.model.named_parameters())
+    for name, p in step_g.model.named_parameters():
+        pc = params_c[name]
+        g_c, g_g = pc.grad, p.grad.cpu()
+        top = g_c.abs().max().item()
+        torch.testing.assert_close(g_g, g_c, rtol=1e-3, atol=1e-4 * top,
+                                   msg=lambda m: f"{name} grad: {m}")
+        worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
+                                                                    1e-30))
+        settled = g_c.abs() >= 1e-4 * top
+        unsettled += int((~settled).sum())
+        diff = (p.detach().cpu() - pc.detach()).abs()
+        if diff.max().item() > LR * 1.001:
+            raise AssertionError(f"{name}: params after Adam differ by "
+                                 f"{diff.max().item()}")
+        torch.testing.assert_close(p.detach().cpu()[settled],
+                                   pc.detach()[settled], rtol=1e-5,
+                                   atol=1e-6,
+                                   msg=lambda m: f"{name} param: {m}")
+        worst_p = max(worst_p, diff[settled].max().item()
+                      if settled.any() else 0.0)
+    say(f"  {what}: loss {loss_g:.7f} card, {loss_c:.7f} CPU; worst "
+        f"gradient error {worst_g:.3e} of its tensor's largest; worst "
+        f"settled param error after Adam {worst_p:.3e} ({unsettled} "
+        f"round-off-gradient entries held to lr)")
+
+
+def check_tgat_train_against_cpu(ds, out, dev):
+    """One TGAT train step at full width (d_k 258, batch
+    ``TGAT_REF_BATCH``) on the card and on the CPU from the trained
+    checkpoint at float32, with the same draws (dropout 0.1 included)."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"tgat_{TGAT_DATA}.pt.train_state"),
+        map_location="cpu")
+    cpu = torch.device("cpu")
+    step_c = tgat_steps_on(cpu, ds, blob, torch.float32)
+    step_g = tgat_steps_on(dev, ds, blob, torch.float32)
+    if step_g.model.attn_layers[0].attn.d_k != 258:
+        raise AssertionError("the TGAT's d_k is not 258")
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, TGAT_REF_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 3)
+    draws = step_c.draw(gen, TGAT_REF_BATCH)
+    aux_c = step_c(batch, draws)
+    aux_g = step_g(to_device(batch, dev), to_device(draws, dev))
+    torch.cuda.synchronize()
+    compare_train_steps(step_c, aux_c, step_g, aux_g, "TGAT train step")
+
+
+def check_uslegis_tgat(ds, dev):
+    """The committed uslegis TGAT (3 layers, node 172, edge 1: d_k 173,
+    ``fc`` 346 -> 345; read by the port's own msgpack reader) scores 8
+    events of the cut stream (edge features cut to width 1) over supports
+    of its ``n_degree`` 30 (30 + 900 + 27,000 events a side), on the card
+    and on the CPU with the same supports: at float32 rtol 2e-4, atol 1e-5;
+    at bf16, the default, rtol 5e-2, atol 5e-2 (each side rounds its
+    projections to bf16 after float32 sums taken in another order, a bf16
+    ulp is 4e-3, and the differences pass through three layers)."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.tgat import TGAT
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_meta
+    from tempme_tpu_torch.utils.convert import (flax_to_state_dict,
+                                                read_flax_msgpack)
+    path = os.path.join(ROOT, USLEGIS_TGAT)
+    meta = load_meta(path)
+    state = flax_to_state_dict(read_flax_msgpack(path))
+    cpu = torch.device("cpu")
+    n, b = int(meta["n_degree"]), 8
+    g = build_temporal_graph(ds.full, ds.full.num_nodes, ds.full.num_edges,
+                             device=cpu)
+    feats = Features(torch.from_numpy(ds.node_feat),
+                     torch.from_numpy(ds.edge_feat[:, :meta["edge_dim"]]
+                                      .copy()))
+    dst = torch.from_numpy(RandEdgeSampler([ds.test.src],
+                                           [ds.test.dst]).dst_list)
+    batch = next(loops.iter_batches(ds.test, b, False, cpu))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 17)
+    draws = loops.draw_support(gen, b, meta["n_layer"], n, dst.shape[0], cpu)
+    bgd, *subs = loops.sample_support(g, batch, dst, meta["n_layer"], n,
+                                      draws, use_eidx=False)
+    errs = {}
+    for dtype, rtol, atol in ((torch.float32, 2e-4, 1e-5),
+                              (torch.bfloat16, 5e-2, 5e-2)):
+        out = []
+        for d in (cpu, dev):
+            model = TGAT(meta["node_dim"], meta["edge_dim"],
+                         num_layers=meta["n_layer"], n_head=meta["n_head"],
+                         dropout=0.0, device=d, compute_dtype=dtype)
+            model.load_state_dict(state)
+            if model.attn_layers[0].attn.d_k != 173:
+                raise AssertionError("the uslegis TGAT's d_k is not 173")
+            with torch.no_grad():
+                out.append(model.contrast(
+                    to_device(feats, d), *(x.to(d) for x in (
+                        batch.src, batch.dst, bgd, batch.ts)),
+                    *(to_device(sub, d) for sub in subs)))
+        torch.cuda.synchronize()
+        for a, c in zip(out[1], out[0]):
+            torch.testing.assert_close(a.cpu(), c, rtol=rtol, atol=atol)
+        errs[str(dtype)[6:]] = max((a.cpu() - c).abs().max().item()
+                                   for a, c in zip(out[1], out[0]))
+    say(f"  uslegis TGAT contrast (batch {b}, n {n}, 3 hops): card against "
+        f"CPU max abs err {errs['float32']:.3e} at float32 (rtol 2e-4, atol "
+        f"1e-5), {errs['bfloat16']:.3e} at bf16 (rtol 5e-2, atol 5e-2)")
+
+
+def profile_tgat_training(ds, out, dev, n_steps=20):
+    """20 TGAT train steps at batch 32 from the checkpoint's state, the
+    projections in bf16 as the driver runs them."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"tgat_{TGAT_DATA}.pt.train_state"),
+        map_location="cpu")
+    step = tgat_steps_on(dev, ds, blob, torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    batches = loops.stack_batches(ds.train, TGAT_BATCH, True, SEED + 4, dev)
+    work = [(loops.Batch(*(x[i] for x in batches)),
+             step.draw(gen, TGAT_BATCH)) for i in range(n_steps)]
+
+    def run(i):
+        step(*work[i])
+    run(0)                                   # warm up off the window
+    profile_steps(run, n_steps)
+
+
+def check_tgat_kernels(g, torch, dev):
+    """The kernels at the TGAT paths' shapes on the stream's graph:
+    ``sample_rows`` down three hops of batch 32 (Q 32, 640, 12,800, the
+    lower two cut at the picked edges) and at the explainer's hop 3 (Q
+    40,000 from batch 100), bitwise; ``attend`` (h 2, n 20, d_k 258) at the
+    pyramid's rows m 32, 640, 12,800 (training and eval), 40,000 (the
+    explainer's hop 2) and 8,000 (the sweep's 4 ratios x 100 x 20) and at
+    d_k 173 (the uslegis TGAT) at m 8,000, float32 and bf16;
+    ``attend_drop`` and ``attend_bwd``'s training form at m 12,800 and the
+    explain weight's gradient at m 2,000 (the explainer's hop 1), bf16;
+    and C3's sizes: ``sample_rows`` at n 3,073 and 4,096 and the
+    ``walk_to_edge`` forward at 4,097 and 8,192 slots a row (its scan
+    path), bitwise. Returns (rows, errors)."""
+    import torch.nn.functional as F
+    from tempme_tpu_torch.ops.kernels.attend import (
+        attend, attend_bwd, attend_bwd_plain, attend_drop, attend_drop_plain,
+        attend_plain)
+    from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
+                                                          sample_rows_plain)
+    from tempme_tpu_torch.ops.kernels.walk_to_edge import (
+        walk_to_edge_count_plain, walk_to_edge_fwd, walk_to_edge_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    rows, errs = {}, {}
+
+    def timed(name, kernel, plain, nbytes, ops, ops_per_s=H100_F32_OPS_PER_S,
+              library=None):
+        ms, host = time_ms(kernel)
+        plain_ms, _ = time_ms(plain)
+        lib = time_ms(library)[0] if library is not None else None
+        least, by = bound(nbytes, ops, ops_per_s)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
+                          bound_by=by, library_ms=lib)
+        say(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + (f", sdpa {lib:.4f} ms" if lib is not None else "")
+            + f", bound {least:.5f} ms ({by}); eager call from the host "
+            f"{host:.4f} ms")
+
+    # sample_rows down the pyramid: hop 0 at the batch time, then edge cuts
+    def hop_chain(b):
+        nodes = torch.randint(1, g.num_nodes, (b,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        times = torch.rand((b,), generator=gen, device=dev) * 1e6
+        args, eids = [], None
+        for _ in range(3):
+            u = torch.rand((nodes.shape[0], N_DEGREE), generator=gen,
+                           device=dev)
+            args.append((nodes, times, u, eids))
+            got = sample_rows(g, nodes, times, u, eids)
+            want = sample_rows_plain(g, nodes, times, u, eids)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"sample_rows differs from its plain "
+                                     f"version at Q {nodes.shape[0]}")
+            nodes, eids, times = (x.reshape(-1).contiguous() for x in got)
+        return args
+    train_hops, explain_hops = hop_chain(TGAT_BATCH), hop_chain(100)
+    for name, args in (("tgat hop2 Q=12800", train_hops[2]),
+                       ("tgat explain hop2 Q=40000", explain_hops[2])):
+        q, n = args[2].shape
+        timed(f"sample_rows {name}", lambda: sample_rows(g, *args),
+              lambda: sample_rows_plain(g, *args),
+              sample_rows_bytes(g, *args), q * n * (2 * n + 4),
+              H100_INT32_OPS_PER_S)
+    errs["sample_rows"] = 0.0
+
+    h, n = 2, N_DEGREE
+    fwd_err = bwd_err = 0.0
+    for dk, m, dtype in [(258, m, d) for m in (32, 640, 8000, 12800, 40000)
+                         for d in (torch.float32, torch.bfloat16)] + [
+            (173, 8000, torch.float32), (173, 8000, torch.bfloat16)]:
+        scale = 1.0 / dk ** 0.5
+        q = torch.randn((m, h, dk), generator=gen, device=dev).to(dtype)
+        k = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+        v = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+        mask = torch.rand((m, n), generator=gen, device=dev) < 0.3
+        mask[:3] = True
+        ew = torch.rand((m, n), generator=gen, device=dev)
+        u = torch.rand((m, h, n), generator=gen, device=dev)
+        dout = torch.randn((m, h, dk), generator=gen, device=dev)
+        # the plain version in float64, rounded to float32: at d_k 258 the
+        # float32 plain version's own sums round in another order than the
+        # kernel's (tests/test_torch_kernels_cuda.py)
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        for got, want in (
+                (attend(q, k, v, mask, ew, scale),
+                 attend_plain(q64, k64, v64, mask, ew.double(), scale)),
+                (attend_drop(q, k, v, mask, None, u, DROPOUT, scale),
+                 attend_drop_plain(q64, k64, v64, mask, None, u.double(),
+                                   DROPOUT, scale))):
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                b = b.float()
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+                fwd_err = max(fwd_err, (a - b).abs().max().item())
+        del q64, k64, v64
+        for mk, w, uu, rate, ew_grad in ((mask, None, u, DROPOUT, False),
+                                         (mask, ew, None, 0.0, True)):
+            got = attend_bwd(q, k, v, mk, w, uu, rate, scale, dout,
+                             ew_grad=ew_grad)
+            want = attend_bwd_plain(q, k, v, mk, w, uu, rate, scale, dout,
+                                    ew_grad=ew_grad)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if a is None:
+                    continue
+                tol = (dict(rtol=1e-2, atol=1e-4) if a.dtype == torch.bfloat16
+                       else dict(rtol=1e-5, atol=1e-5))
+                torch.testing.assert_close(a.float(), b.float(), **tol)
+                if a.dtype == torch.float32:
+                    bwd_err = max(bwd_err, (a - b).abs().max().item())
+        if dtype != torch.bfloat16:
+            continue
+        elem = q.element_size()
+        tag = f"m={m} dk={dk} bfloat16"
+        if dk == 258:
+            qs, ks, vs = (q[:, :, None, :], k.permute(0, 2, 1, 3),
+                          v.permute(0, 2, 1, 3))
+            bias = torch.zeros((m, 1, 1, n), device=dev,
+                               dtype=dtype).masked_fill(
+                mask[:, None, None, :], -1e10)
+            timed(f"attend tgat {tag}",
+                  lambda: attend(q, k, v, mask, ew, scale),
+                  lambda: attend_plain(q, k, v, mask, ew, scale),
+                  attend_bytes(m, h, n, dk, True, True, elem),
+                  m * h * n * (4 * dk + 5),
+                  library=lambda: F.scaled_dot_product_attention(
+                      qs, ks, vs, attn_mask=bias))
+        if dk == 258 and m == 12800:
+            timed(f"attend_drop tgat {tag}",
+                  lambda: attend_drop(q, k, v, mask, None, u, DROPOUT,
+                                      scale),
+                  lambda: attend_drop_plain(q, k, v, mask, None, u, DROPOUT,
+                                            scale),
+                  attend_drop_bytes(m, h, n, dk, True, False, elem),
+                  m * h * n * (4 * dk + 6))
+            timed(f"attend_bwd tgat {tag}",
+                  lambda: attend_bwd(q, k, v, mask, None, u, DROPOUT, scale,
+                                     dout),
+                  lambda: attend_bwd_plain(q, k, v, mask, None, u, DROPOUT,
+                                           scale, dout),
+                  attend_bwd_bytes(m, h, n, dk, True, False, elem),
+                  m * h * n * (8 * dk + 12))
+    # the explain weight's gradient at the explainer's hop 1 (m 2,000)
+    m, dk, dtype = 2000, 258, torch.bfloat16
+    q = torch.randn((m, h, dk), generator=gen, device=dev).to(dtype)
+    k = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+    v = torch.randn((m, n, h, dk), generator=gen, device=dev).to(dtype)
+    mask = torch.rand((m, n), generator=gen, device=dev) < 0.3
+    ew = torch.rand((m, n), generator=gen, device=dev)
+    dout = torch.randn((m, h, dk), generator=gen, device=dev)
+    scale = 1.0 / dk ** 0.5
+    timed(f"attend_bwd tgat explain m={m} dk={dk} bfloat16 ew",
+          lambda: attend_bwd(q, k, v, mask, ew, None, 0.0, scale, dout,
+                             ew_grad=True),
+          lambda: attend_bwd_plain(q, k, v, mask, ew, None, 0.0, scale, dout,
+                                   ew_grad=True),
+          attend_bwd_bytes(m, h, n, dk, True, False, 2, True),
+          m * h * n * (8 * dk + 12))
+    errs["attend"], errs["attend_bwd"] = fwd_err, bwd_err
+    say(f"  TGAT shapes: attend and attend_drop max abs err vs plain "
+        f"{fwd_err:.3e} (the plain version in float64; rtol 1e-5, atol "
+        f"1e-6); attend_bwd at float32 "
+        f"{bwd_err:.3e} (rtol 1e-5, atol 1e-5; bf16 dq, dk, dv rtol 1e-2, "
+        f"atol 1e-4)")
+
+    # C3: rows above the old limits
+    nodes = train_hops[1][0][:129].contiguous()
+    times = train_hops[1][1][:129].contiguous()
+    for big in (3073, 4096):
+        u = torch.rand((129, big), generator=gen, device=dev)
+        got = sample_rows(g, nodes, times, u)
+        want = sample_rows_plain(g, nodes, times, u)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"sample_rows differs at n {big}")
+    for s_len in (4097, 8192):
+        ids = torch.randint(0, 5000, (20, s_len), generator=gen, device=dev,
+                            dtype=torch.int32)
+        imp = torch.rand((20, s_len), generator=gen, device=dev)
+        tgt = torch.randint(0, 5000, (20, 400), generator=gen, device=dev,
+                            dtype=torch.int32)
+        out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+        ref = walk_to_edge_plain(ids, imp, tgt)
+        ref_cnt = walk_to_edge_count_plain(ids, imp, tgt)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(cnt, ref_cnt)):
+            raise AssertionError(f"walk_to_edge differs at S {s_len}")
+        if not (out > 0).any():
+            raise AssertionError("walk_to_edge: no target matched at S "
+                                 f"{s_len}")
+        # the function's work, as for the table path (about 8 integer
+        # operations a slot and a target), not the scan's B * T * S
+        # compares
+        timed(f"walk_to_edge scan path S={s_len} T=400",
+              lambda: walk_to_edge_fwd(ids, imp, tgt),
+              lambda: walk_to_edge_plain(ids, imp, tgt),
+              20 * s_len * 8 + 20 * 400 * 12, 8 * 20 * (s_len + 400),
+              H100_INT32_OPS_PER_S)
+    say("  C3: sample_rows at n 3,073 and 4,096 and walk_to_edge at 4,097 "
+        "and 8,192 slots a row equal to their plain versions bit for bit")
+    return rows, errs
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tempme_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -1405,6 +1974,9 @@ def main():
     at_rows, at_err = check_attend(torch, dev)
     drop_rows, bwd_rows, drop_err, bwd_err = check_attend_train(torch, dev)
     walk_rows, walk_errs = check_walk_kernels(ds, g, torch, dev)
+    say("[kernels] at the TGAT paths' shapes (3 layers, d_k 258, hop 3) and "
+        "C3's sizes")
+    tgat_rows, tgat_errs = check_tgat_kernels(g, torch, dev)
 
     say("[serve] train -> val -> test, memory carried in time order, "
         f"batch {BATCH}, {N_DEGREE} neighbours")
@@ -1504,11 +2076,83 @@ def main():
         say("[trace-train] torch.profiler over 20 train steps at batch "
             f"{BATCH} (not counted above)")
         profile_training(ds, os.path.join(work, "train"), dev)
+
+        from tempme_tpu_torch.data.events import load_dataset
+        t0 = time.perf_counter()
+        write_stream(ds_dir, TGAT_DATA, TGAT_EVENTS)
+        ds30 = load_dataset(TGAT_DATA, ds_dir)
+        tgat_out = os.path.join(work, "tgat")
+        say(f"[tgat-train] learn_base.main at its default flags (TGAT, 3 "
+            f"layers, 2 heads, the deep-TGAT batch {TGAT_BATCH}, dropout "
+            f"{DROPOUT}, Adam lr {LR}), {N_DEGREE} neighbours, width 172 "
+            f"(d_k 258), one epoch on the first {TGAT_EVENTS} events of the "
+            f"stream in the ml_{TGAT_DATA} layout (written in "
+            f"{time.perf_counter() - t0:.2f} s; train {len(ds30.train)}, "
+            f"val {len(ds30.val)}, test {len(ds30.test)} events)")
+        tgat_launches, _, tgat_numbers, tgat_snap = tgat_train(
+            ds30, ds_dir, tgat_out, torch)
+        say(f"[tgat-resume] --resume from the state of a run stopped right "
+            f"after its --ckpt_every_steps {TGAT_CKPT_STEP} checkpoint, to "
+            f"the end of the epoch")
+        t0 = time.perf_counter()
+        tgat_resume(ds_dir, os.path.join(work, "tgat_resume"), tgat_snap)
+        say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+        say("[eval-only] learn_base --eval_only on the TGAT of [tgat-train] "
+            "and the TGN of [train]")
+        eval_only(tgat_argv(ds_dir, tgat_out), os.path.join(
+            tgat_out, "results", f"base_tgat_{TGAT_DATA}.json"), "TGAT")
+        eval_only(train_argv(ds_dir, os.path.join(work, "train")),
+                  os.path.join(work, "train", "results",
+                               f"base_tgn_{DATA_NAME}.json"), "TGN")
+        say(f"[tgat-reference] one TGAT train step (batch {TGAT_REF_BATCH}, "
+            f"width 172, d_k 258, dropout {DROPOUT}) on the card against "
+            f"the CPU from the trained checkpoint at float32 (loss rtol "
+            f"1e-4; gradients rtol 1e-3, atol 1e-4 of the tensor's largest; "
+            f"params after Adam rtol 1e-5, atol 1e-6 where settled, within "
+            f"lr elsewhere); the committed uslegis TGAT's contrast at "
+            f"float32 and bf16")
+        check_tgat_train_against_cpu(ds30, tgat_out, dev)
+        check_uslegis_tgat(ds30, dev)
+        tgat_ckpt = os.path.join(tgat_out, "params")
+        say(f"[tgat-explain] temp_exp_main.main --base_type tgat on the "
+            f"frozen TGAT of [tgat-train] (3-hop supports, bf16 "
+            f"projections): one epoch, batch {EXPLAIN_BATCH}, {N_DEGREE} "
+            f"neighbours, 60 walks a side, out_dim 40, hid_dim 64, 8 "
+            f"heads, dropout {DROPOUT}, Adam lr {LR}, then val and test "
+            f"with fidelity and the 16-ratio sweep in 4 chunks of 4")
+        tx_launches, tx_numbers, tx_results, tx_snap = explain(
+            ds30, ds_dir, tgat_ckpt, os.path.join(work, "tgat_explain"),
+            torch, base_type="tgat", data=TGAT_DATA,
+            per_step=TGAT_EXPLAIN_PER_STEP,
+            resume_step=TGAT_EXPLAIN_RESUME_STEP)
+        say(f"  --resume from the state of a run stopped right after its "
+            f"--ckpt_every_steps {TGAT_EXPLAIN_RESUME_STEP} checkpoint")
+        t0 = time.perf_counter()
+        explain_resume(ds_dir, tgat_ckpt,
+                       os.path.join(work, "tgat_explain_resume"), tx_snap,
+                       base_type="tgat", data=TGAT_DATA,
+                       resume_step=TGAT_EXPLAIN_RESUME_STEP)
+        say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+        say("  --eval_only on the saved TGAT explainer")
+        explain_eval_only(ds_dir, tgat_ckpt,
+                          os.path.join(work, "tgat_explain_eval"),
+                          tx_results, base_type="tgat", data=TGAT_DATA)
+        say(f"[trace-tgat] torch.profiler over 20 TGAT train steps at batch "
+            f"{TGAT_BATCH} (not counted above)")
+        profile_tgat_training(ds30, tgat_out, dev)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
+    say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
+    say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches,
-               "explain": explain_launches}
+               "explain": explain_launches, "tgat-train": tgat_launches,
+               "tgat-explain": tx_launches}
+    tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
+                "attend": "attend tgat m=12800 dk=258 bfloat16",
+                "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",
+                "attend_bwd": "attend_bwd tgat m=12800 dk=258 bfloat16",
+                "walk_to_edge": "walk_to_edge scan path S=8192 T=400"}
     kernels = []
     csrc = "tempme_tpu_torch/ops/kernels/csrc/"
     pallas = "tempme_tpu/ops/pallas/"
@@ -1541,11 +2185,17 @@ def main():
                         "launches_by_path": {
                             p: c[name] for p, c in by_path.items()
                             if name in c},
-                        "max_abs_err": err, "ms": rows["ms"],
+                        "max_abs_err": max(err, tgat_errs.get(name, 0.0)),
+                        "ms": rows["ms"],
                         "plain_ms": rows["plain_ms"],
                         "bound_ms": rows["bound_ms"],
                         "bound_by": rows["bound_by"],
-                        "library_ms": rows.get("library_ms")})
+                        "library_ms": rows.get("library_ms"),
+                        "tgat": dict(tgat_rows[tgat_row[name]],
+                                     shape=tgat_row[name])
+                        if name in tgat_row else None})
+    say(f"[done] chip_smoke.py ran {time.perf_counter() - T0:.1f} s, the "
+        f"kernels' build included")
     say(json.dumps({"kernels": kernels}))
     say(gpu_line())
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-"""Configuration for the port's drivers (TGN training, the explainer).
+"""Configuration for the port's drivers (base training, the explainer).
 
 The port's copy of the parts of ``tempme_tpu/config.py`` that these paths
 read: ``DEGREE_DICT``, ``DEFAULT_RATIOS``, the data, model, explainer and
-train configs, the shared argument groups and ``config_from_args``. The batch size is resolved in one
-place, ``resolve_bs``, which ``config_from_args`` calls: an explicit
-``--bs`` wins, and a batch size below 1 is refused.
+train configs, the shared argument groups and ``config_from_args``. The
+batch size is resolved in one place, ``resolve_bs``, which
+``config_from_args`` calls: an explicit ``--bs`` wins, a batch size below 1
+is refused, and a driver that trains a 3-layer TGAT resolves it first with
+the deep-TGAT batch of 32 (``learn_base.main``). ``n_layers`` is per base:
+the TGN runs 2 layers whatever ``--n_layer`` says, TGAT ``--n_layer``
+(3 by default).
 """
 from __future__ import annotations
 
@@ -48,6 +52,9 @@ class ModelConfig:
     aggregator: str = "last"
     message_function: str = "mlp"
     embedding_module: str = "graph_attention"
+    agg_method: str = "attn"              # TGAT: attn | lstm | mean
+    attn_mode: str = "prod"               # TGAT: prod | map
+    use_time: str = "time"                # TGAT: time | pos | empty
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +122,23 @@ def add_model_args(p):
     p.add_argument("--embedding_module",
                    choices=["graph_attention", "identity", "time"],
                    default="graph_attention")
+    p.add_argument("--agg_method", choices=["attn", "lstm", "mean"],
+                   default="attn")
+    p.add_argument("--attn_mode", choices=["prod", "map"], default="prod")
+    p.add_argument("--use_time", choices=["time", "pos", "empty"],
+                   default="time")
     return p
+
+
+def check_tgat_variant(agg_method: str, attn_mode: str, use_time: str):
+    """Refuse the TGAT variants the port does not have yet: only
+    ``attn``/``prod``/``time`` runs; the others raise, naming ROADMAP item
+    A10 (none is replaced by another quietly)."""
+    variant = (agg_method, attn_mode, use_time)
+    if variant != ("attn", "prod", "time"):
+        raise NotImplementedError(
+            f"TGAT variant agg_method/attn_mode/use_time = {variant} is not "
+            "ported yet (ROADMAP item A10)")
 
 
 def add_explainer_args(p):
@@ -128,11 +151,17 @@ def add_explainer_args(p):
     return p
 
 
-def resolve_bs(args) -> int:
+def resolve_bs(args, deep_tgat_bs: int = 0) -> int:
     """Fill ``args.bs`` from the parser's nominal default when ``--bs`` was
-    not given; refuse a batch size below 1."""
+    not given; refuse a batch size below 1. A driver that trains the full
+    deep TGAT pyramid passes ``deep_tgat_bs`` (32 in the published runs):
+    a TGAT of 3 or more layers then takes the smaller of it and the nominal
+    default. An explicit ``--bs`` always wins."""
     if args.bs is None:
-        args.bs = args._bs_nominal
+        deep = (deep_tgat_bs and getattr(args, "base_type", "") == "tgat"
+                and getattr(args, "n_layer", 2) >= 3)
+        args.bs = min(args._bs_nominal, deep_tgat_bs) if deep \
+            else args._bs_nominal
     if args.bs < 1:
         raise ValueError(f"--bs must be at least 1, got {args.bs}")
     return args.bs
@@ -152,7 +181,9 @@ def config_from_args(args) -> Config:
         memory_updater=g("memory_updater", "gru"),
         aggregator=g("aggregator", "last"),
         message_function=g("message_function", "mlp"),
-        embedding_module=g("embedding_module", "graph_attention"))
+        embedding_module=g("embedding_module", "graph_attention"),
+        agg_method=g("agg_method", "attn"), attn_mode=g("attn_mode", "prod"),
+        use_time=g("use_time", "time"))
     explainer = ExplainerConfig(
         out_dim=g("out_dim", 40), hid_dim=g("hid_dim", 64),
         prior_p=g("prior_p", 0.3), beta=g("beta", 0.5),

@@ -203,10 +203,13 @@ class TempME(nn.Module):
                  use_dependency_sampling: bool = True, device=None,
                  seed: int = 0):
         super().__init__()
+        if base_type == "tgat":
+            raise ValueError("a TGAT base's explainer is TempMETGAT "
+                             "(explain/tempme_tgat.py)")
         if base_type != "tgn":
             raise NotImplementedError(
                 f"the explainer of a {base_type} base is not ported yet "
-                "(ROADMAP items A10, A11)")
+                "(ROADMAP item A11)")
         dev = resolve_device(device)
         self.node_dim, self.edge_dim = node_dim, edge_dim
         self.out_dim, self.hid_dim = out_dim, hid_dim

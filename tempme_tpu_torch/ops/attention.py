@@ -1,10 +1,13 @@
 """Split-projection 1-query x n-neighbour temporal attention.
 
-Port of ``tempme_tpu/ops/attention.py`` ``SplitTemporalAttention``,
-``_attend`` and ``multi_mask``. The key and value projections are bias-free
-linears over ``[node || edge || time]``, so they split into per-part
-projections: node and edge parts are projected by the caller (once per table
-or per level), and only the time part is projected per position here. The
+Port of ``tempme_tpu/ops/attention.py`` ``SplitTemporalAttention``
+(with ``multi_mask`` and ``multi_mask_shared_kv``; its
+``project_node_table`` and ``project_edge_table`` are ``project_node``
+and ``project_edge`` given a whole table) and ``_attend``. The key and
+value projections are bias-free linears over ``[node || edge || time]``,
+so they split into per-part projections: node and edge parts are
+projected by the caller (once per table or per level), and only the time
+part is projected per position here. The
 attention core (scores, mask, softmax, dropout, explain weight, value sum)
 is the ``attend`` kernel in its eval or training form
 (``ops/kernels/attend.py``).
@@ -123,10 +126,16 @@ class SplitTemporalAttention(nn.Module):
                         bias)
 
     def project_node(self, x):
-        """Node-part key/value projections: [..., Dn] -> two [..., h*dk]."""
+        """Node-part key/value projections: [..., Dn] -> two [..., h*dk].
+        Given a whole feature table [N, Dn], a level's rows are then
+        gathered from the two projected tables (``gather_rows``, whose
+        backward sums repeated rows in segments), not projected one
+        gathered row at a time: the projections are row-wise, so the
+        gathered rows are the projected gathered rows."""
         return self._dense(self.wk_node, x), self._dense(self.wv_node, x)
 
     def project_edge(self, x):
+        """As ``project_node`` for edge features (or the edge table)."""
         return self._dense(self.wk_edge, x), self._dense(self.wv_edge, x)
 
     def forward(self, q_node, q_time, residual, k_nv, v_nv, k_ev, v_ev,
@@ -161,28 +170,98 @@ class SplitTemporalAttention(nn.Module):
                               out / (1.0 - self.dropout), 0.0)
         return self.ln(out.float() + residual), attn.reshape(b, nq, h, n)
 
-    def multi_mask(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev, ngh_time,
-                   q_keep, kv_keep):
-        """The ratio sweep's form (eval only): the attention under R keep
-        masks at once. A dropped entry behaves as node-id-0 padding: its
-        projected node parts are scaled by 0 (the node projections are
-        bias-free, so that is the zero row's projection) and its score is
-        masked; the time and edge parts stay. Projections are shared by the
-        R masks; only the keep scaling, scores, softmax and value sum carry
-        the R axis. ``q_keep`` [R, B, Nq] / ``kv_keep`` [R, B, Nq*n] bool
-        (True = kept) -> [R, B, Nq, d_model] float32."""
+    def _residual(self, q_node, q_time, qk, r, residual_zeros):
+        """The sweep's residual [R, B, Nq, d_model]: the kept query's node
+        features, ``residual_zeros`` zero columns (TGAT's query edge part),
+        its time encoding."""
+        parts = [q_node[None] * qk.to(q_node.dtype)]
+        if residual_zeros:
+            parts.append(q_node.new_zeros(
+                (r,) + q_node.shape[:2] + (residual_zeros,)))
+        parts.append(q_time[None].expand((r,) + q_time.shape))
+        return torch.cat(parts, dim=-1)
+
+    def shared_kv_parts(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev,
+                        ngh_time):
+        """What ``multi_mask_shared_kv`` computes once for every ratio: the
+        score terms ``q_node . k`` and ``q_time . k`` [B, Nq, h, n] and the
+        values [B, Nq, n, h, dk], float32 (from the compute type)."""
         b, nq, _ = q_node.shape
         n = k_nv.shape[1] // nq
         h, dk = self.n_head, self.d_k
-        r = q_keep.shape[0]
-        cd = self.compute_dtype
-        q_np = self._dense(self.wq_node, q_node)
-        q_tp = self._dense(self.wq_time, q_time)
+        q_np = self._dense(self.wq_node, q_node).reshape(b, nq, h, dk)
+        q_tp = self._dense(self.wq_time, q_time).reshape(b, nq, h, dk)
+        k = k_nv + self._dense(self.wk_time, ngh_time)
+        v = v_nv + self._dense(self.wv_time, ngh_time)
+        if k_ev is not None:
+            k = k + k_ev
+            v = v + v_ev
+        kh = k.reshape(b, nq, n, h, dk).float()
+        return (torch.einsum("bqhd,bqnhd->bqhn", q_np.float(), kh),
+                torch.einsum("bqhd,bqnhd->bqhn", q_tp.float(), kh),
+                v.reshape(b, nq, n, h, dk).float())
+
+    def multi_mask_shared_kv(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev,
+                             ngh_time, q_keep, kv_pad, residual_zeros=0,
+                             parts=None):
+        """The sweep's form for a level whose children are never masked (the
+        3-layer TGAT's deepest level: the explanation covers hops 0-1, so
+        hop-2 keys do not depend on the ratio). K, V and the two score terms
+        ``q_node . k`` and ``q_time . k`` are computed once
+        (``shared_kv_parts``, which a caller sweeping the ratios in chunks
+        passes as ``parts``); per ratio only ``q_keep * s_node + s_time``,
+        the softmax and the value sum run. ``q_keep`` [R, B, Nq] bool,
+        ``kv_pad`` [B, Nq*n] bool (the base padding) -> [R, B, Nq, d_model]
+        float32."""
+        s_np, s_tp, vh = parts or self.shared_kv_parts(
+            q_node, q_time, k_nv, v_nv, k_ev, v_ev, ngh_time)
+        b, nq, h, n = s_np.shape
+        dk, r = self.d_k, q_keep.shape[0]
+        qk = q_keep.float().reshape(r, b, nq, 1, 1)
+        scores = (s_np[None] * qk + s_tp[None]) / math.sqrt(dk)
+        attn = torch.softmax(scores.masked_fill(
+            kv_pad.reshape(1, b, nq, 1, n), -1e10), dim=-1)
+        out = torch.einsum("rbqhn,bqnhd->rbqhd",
+                           attn.to(self.compute_dtype).float(), vh)
+        out = self._dense(self.fc, out.reshape(r, b, nq, h * dk))
+        residual = self._residual(q_node, q_time, q_keep[..., None], r,
+                                  residual_zeros)
+        return self.ln(out.float() + residual)
+
+    def multi_mask_parts(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev,
+                         ngh_time):
+        """What ``multi_mask`` computes once for every ratio: the query's
+        node and time projections, the keys' and values' node parts and
+        their time (plus edge) parts."""
         k_t = self._dense(self.wk_time, ngh_time)
         v_t = self._dense(self.wv_time, ngh_time)
         if k_ev is not None:
             k_t = k_t + k_ev
             v_t = v_t + v_ev
+        return (self._dense(self.wq_node, q_node),
+                self._dense(self.wq_time, q_time), k_nv, v_nv, k_t, v_t)
+
+    def multi_mask(self, q_node, q_time, k_nv, v_nv, k_ev, v_ev, ngh_time,
+                   q_keep, kv_keep, residual_zeros=0, parts=None):
+        """The ratio sweep's form (eval only): the attention under R keep
+        masks at once. A dropped entry behaves as node-id-0 padding: its
+        projected node parts are scaled by 0 (the node projections are
+        bias-free, so that is the zero row's projection) and its score is
+        masked; the time and edge parts stay. Projections are shared by the
+        R masks (``multi_mask_parts``, which a caller sweeping the ratios in
+        chunks passes as ``parts``); only the keep scaling, scores, softmax
+        and value sum carry the R axis. ``q_keep`` [R, B, Nq] / ``kv_keep``
+        [R, B, Nq*n] bool (True = kept) -> [R, B, Nq, d_model] float32.
+        ``residual_zeros`` zero columns sit between the query's node and
+        time parts of the residual (TGAT's query has a zero edge part;
+        TGN's has none)."""
+        q_np, q_tp, k_nv, v_nv, k_t, v_t = parts or self.multi_mask_parts(
+            q_node, q_time, k_nv, v_nv, k_ev, v_ev, ngh_time)
+        b, nq, _ = q_node.shape
+        n = k_nv.shape[1] // nq
+        h, dk = self.n_head, self.d_k
+        r = q_keep.shape[0]
+        cd = self.compute_dtype
         qk = q_keep.to(cd)[..., None]                     # [R, B, Nq, 1]
         kk = kv_keep.to(cd).reshape(r, b, nq, n, 1)
         q_r = q_np[None] * qk + q_tp[None]
@@ -193,7 +272,5 @@ class SplitTemporalAttention(nn.Module):
                              v_r.reshape(r, b, nq, n, h, dk),
                              ~kv_keep.reshape(r, b, nq, 1, n), dk)
         out = self._dense(self.fc, out.reshape(r, b, nq, h * dk))
-        residual = torch.cat([q_node[None] * qk.to(q_node.dtype),
-                              q_time[None].expand((r,) + q_time.shape)],
-                             dim=-1)
+        residual = self._residual(q_node, q_time, qk, r, residual_zeros)
         return self.ln(out.float() + residual)

@@ -41,8 +41,11 @@ def attend_plain(q, k, v, mask=None, ew=None, scale=1.0):
 
 def attend_drop_plain(q, k, v, mask, ew, u, rate, scale=1.0):
     """The plain PyTorch version of the training form (the JAX package's
-    ``_attend_drop_jnp``); ``u=None`` is the eval form."""
-    q, k, v = q.float(), k.float(), v.float()
+    ``_attend_drop_jnp``); ``u=None`` is the eval form. Computed in float32,
+    or in float64 where q, k and v are float64 (a reference free of
+    float32 round-off)."""
+    dt = torch.promote_types(q.dtype, torch.float32)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     scores = torch.einsum("mhd,mnhd->mhn", q, k) * scale
     if mask is not None:
         scores = scores.masked_fill(mask[:, None, :], -1e10)

@@ -19,7 +19,7 @@
 //     its pick's rank, the lanes on consecutive addresses; all zeros where
 //     cut == 0. Up to 32 picks are ranked by shuffles, one a lane (3-8%
 //     faster than the shared-memory loop at the paths' n 20); more, in
-//     shared memory.
+//     shared memory (4 n bytes a warp, opted in above 48 KB a block).
 //
 // Bound on the H100: bytes. Per query it reads two offsets, the search's
 // probes, n draws and 3n table entries, and writes 3n outputs; the
@@ -132,7 +132,16 @@ extern "C" int sample_rows_launch(const void* off, const void* ngh_node,
                                   void* out_ts, void* stream) {
   if (q > 0) {
     const int blocks = (q + kWarps - 1) / kWarps;
+    // above 48 KB (n > 3,072) the kernel must opt in to its shared memory;
+    // past the card's limit (about 14,500 picks on the H100) the launch
+    // fails and the error is returned
     const size_t smem = n <= 32 ? 0 : sizeof(int) * kWarps * n;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sample_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     sample_rows_kernel<<<blocks, 32 * kWarps, smem,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(off), static_cast<const int*>(ngh_node),

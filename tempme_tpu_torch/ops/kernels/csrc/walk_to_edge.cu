@@ -28,6 +28,12 @@
 // so a row of up to 4,096 slots fits a block's shared memory (the
 // explainer's rows hold 180). Each thread loads its target and its first
 // slot before the table is cleared, so those loads overlap the clearing.
+// A row of more slots (9 x n_degree above 4,096, n_degree above 455) takes
+// the scan path instead: the block stages the row's slots in shared memory
+// 2,048 at a time and each thread keeps its target's running max and the
+// number of slots that reach it, the B * T * S compares in full. Max and
+// count again do not depend on the order, so both paths give the plain
+// version's out and cnt exactly.
 // (Measured slower: a group of 8 to 32 lanes scanning every slot for each
 // target and merging (max, count) pairs by shuffles, 2x at T 400; 1,024
 // targets a block, 10%; 128 threads a block, 30%; warp-aggregated
@@ -59,12 +65,15 @@
 // explainer's shape in one wave on 132 SMs (13 warps at T 400 left room for
 // 4 blocks an SM).
 #include <climits>
+#include <cmath>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kFwdThreads = 256;  // and targets a block
+constexpr int kMaxTableSlots = 4096;  // rows above take the scan path
+constexpr int kScanTile = 2048;       // slots staged a round by the scan
 constexpr unsigned long long kEmpty = ~0ull;   // no id: ids are 32-bit
 
 // an int whose order is the float's order (-0 just below +0)
@@ -164,6 +173,43 @@ __global__ void w2e_fwd_kernel(const int* __restrict__ ids,
   cnt[b * t_len + t] = c;
 }
 
+// The scan path for rows of more than kMaxTableSlots slots: each thread
+// compares its target with every slot of the row, staged in tiles.
+__global__ void w2e_fwd_scan_kernel(const int* __restrict__ ids,
+                                    const float* __restrict__ imp,
+                                    const int* __restrict__ tgt, int s_len,
+                                    int t_len, float* __restrict__ out,
+                                    int* __restrict__ cnt) {
+  __shared__ int sid[kScanTile];
+  __shared__ float simp[kScanTile];
+  const long long b = blockIdx.x;
+  const int t = blockIdx.y * kFwdThreads + threadIdx.x;
+  const int x = t < t_len ? tgt[b * t_len + t] : 0;
+  float m = -INFINITY;
+  int c = 0;
+  for (int s0 = 0; s0 < s_len; s0 += kScanTile) {
+    const int len = min(kScanTile, s_len - s0);
+    __syncthreads();
+    for (int s = threadIdx.x; s < len; s += kFwdThreads) {
+      sid[s] = ids[b * s_len + s0 + s];
+      simp[s] = imp[b * s_len + s0 + s];
+    }
+    __syncthreads();
+    for (int s = 0; s < len; ++s) {
+      const float v = sid[s] == x ? simp[s] : 0.0f;
+      if (v > m) {
+        m = v;
+        c = 1;
+      } else if (v == m) {
+        ++c;
+      }
+    }
+  }
+  if (t >= t_len) return;
+  out[b * t_len + t] = m;
+  cnt[b * t_len + t] = c;
+}
+
 constexpr int kBwdMaxWarps = 8;
 
 __global__ void w2e_bwd_kernel(const int* __restrict__ ids,
@@ -222,7 +268,14 @@ int set_smem(const void* kernel, size_t bytes) {
 extern "C" int w2e_fwd_launch(const void* ids, const void* imp,
                               const void* tgt, int b, int s_len, int t_len,
                               void* out, void* cnt, void* stream) {
-  if (b > 0 && t_len > 0) {
+  if (b > 0 && t_len > 0 && s_len > kMaxTableSlots) {
+    const dim3 grid(b, (t_len + kFwdThreads - 1) / kFwdThreads);
+    w2e_fwd_scan_kernel<<<grid, kFwdThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ids), static_cast<const float*>(imp),
+        static_cast<const int*>(tgt), s_len, t_len, static_cast<float*>(out),
+        static_cast<int*>(cnt));
+  } else if (b > 0 && t_len > 0) {
     int log2_h = 1;  // a table of at least twice the slots
     while ((1 << log2_h) < 2 * s_len) ++log2_h;
     const size_t h = size_t{1} << log2_h;

@@ -1,6 +1,7 @@
-"""Merge head and the JAX package's initialisers.
+"""Merge heads and the JAX package's initialisers.
 
-Port of ``tempme_tpu/ops/layers.py`` ``ConcatMerge``. Layers start from the
+Port of ``tempme_tpu/ops/layers.py`` ``ConcatMerge`` and ``GatedMerge``.
+Layers start from the
 distributions flax gives them (``tempme_tpu/ops/layers.py``,
 ``ops/attention.py``, flax ``Dense`` and ``GRUCell`` defaults), not from
 ``torch.nn``'s: ``Dense`` kernels are ``lecun_normal`` (a normal truncated
@@ -45,3 +46,25 @@ class ConcatMerge(nn.Module):
 
     def forward(self, x1, x2):
         return self.fc2(torch.relu(self.fc1(torch.cat([x1, x2], dim=-1))))
+
+
+class GatedMerge(nn.Module):
+    """TGAT's two-branch merge: fc22(relu(fc12(x2))) + fc21(relu(fc11(x1)))
+    (times ``explain_weight`` on the first branch where given). x1 [..., d1],
+    x2 [..., d2] -> [..., dim4]; the four kernels start ``xavier_normal``,
+    the biases at zero."""
+
+    def __init__(self, d1: int, d2: int, dim3: int, dim4: int):
+        super().__init__()
+        xavier = nn.init.xavier_normal_
+        self.fc11 = dense(d1, dim3, init=xavier)
+        self.fc21 = dense(dim3, dim4, init=xavier)
+        self.fc12 = dense(d2, dim3, init=xavier)
+        self.fc22 = dense(dim3, dim4, init=xavier)
+
+    def forward(self, x1, x2, explain_weight=None):
+        x21 = self.fc21(torch.relu(self.fc11(x1)))
+        x22 = self.fc22(torch.relu(self.fc12(x2)))
+        if explain_weight is not None:
+            x21 = x21 * explain_weight[..., None]
+        return x22 + x21

@@ -1,10 +1,12 @@
 """Rebuild a trained base model (module, weights and TGN memory) from the
 checkpoint its driver wrote.
 
-Port of ``tempme_tpu/train/base_loader.py:26-77``, TGN branch: the JSON
-meta names the architecture, the ``.pt`` blob that ``learn_tgn.main``
-writes holds the parameters and the train-side memory. TGAT and GraphMixer
-bases are not ported yet and raise, naming their ROADMAP items.
+Port of ``tempme_tpu/train/base_loader.py:26-77``, TGN and TGAT
+branches: the JSON meta names the architecture, the ``.pt`` blob that
+``learn_base.main`` writes holds the parameters (and the TGN's train-side
+memory). A TGAT of 3 or more layers checkpoints its blocks (``remat``), as
+the JAX loader builds it. GraphMixer bases are not ported yet and raise,
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -12,11 +14,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..models.tgat import TGAT
 from ..models.tgn import TGN, TGNMemoryState
 from ..utils.checkpoint import load_checkpoint
 from ..utils.devices import resolve_device
 
-_NOT_PORTED = {"tgat": "A10", "graphmixer": "A11"}
+_NOT_PORTED = {"graphmixer": "A11"}
 
 
 class LoadedBase(NamedTuple):
@@ -39,6 +42,19 @@ def load_base(ckpt_path: str, device=None,
         raise NotImplementedError(
             f"loading a {base_type} base is not ported yet (ROADMAP item "
             f"{_NOT_PORTED[base_type]})")
+    if base_type == "tgat":
+        model = TGAT(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
+                     num_layers=meta["n_layer"], n_head=meta["n_head"],
+                     dropout=meta["drop_out"],
+                     agg_method=meta.get("agg_method", "attn"),
+                     attn_mode=meta.get("attn_mode", "prod"),
+                     use_time=meta.get("use_time", "time"),
+                     remat=meta["n_layer"] >= 3, device=dev,
+                     compute_dtype=compute_dtype)
+        model.load_state_dict(blob["params"])
+        model.requires_grad_(False)
+        model.eval()
+        return LoadedBase(base_type, model, None, meta)
     if base_type != "tgn":
         raise ValueError(f"unknown base_type {base_type}")
     model = TGN(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],

@@ -20,7 +20,6 @@ from __future__ import annotations
 import os
 import os.path as osp
 import time
-from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,10 +35,7 @@ from ..utils.logging import MetricsLogger
 from . import loops
 
 
-class StepDraws(NamedTuple):
-    """Every random number one train step consumes."""
-    support: loops.SupportDraws
-    dropout: Optional[tuple]   # per side (src, tgt, bgd): AttnDraws per layer
+StepDraws = loops.StepDraws   # dropout: per side (src, tgt, bgd)
 
 
 class TGNTrainStep:

@@ -1,14 +1,17 @@
 """Batches, padding rules, the per-step random draws, the train state and
 the loss.
 
-Port of ``tempme_tpu/train/loops.py:22-94,145-161,213-238``. Random draws
+Port of ``tempme_tpu/train/loops.py:22-161,213-238``, with the
+stateless bases' train and eval steps (``make_base_train_step``,
+``make_base_eval_step``: TGAT; the draws are injected as in the TGN
+step). Random draws
 are tensors (``SupportDraws``, ``AttnDraws``): ``draw_support`` and
 ``draw_dropout`` make them from a ``torch.Generator``, and a test can build
 them from ``jax.random`` in the JAX package's split order instead.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +56,12 @@ def draw_dropout(generator: torch.Generator, shapes, device):
     return tuple(AttnDraws(torch.rand(a, generator=generator, device=device),
                            torch.rand(f, generator=generator, device=device))
                  for a, f in shapes)
+
+
+class StepDraws(NamedTuple):
+    """Every random number one base train step consumes."""
+    support: SupportDraws
+    dropout: Optional[tuple]   # per embedding call: AttnDraws per layer/block
 
 
 class TrainState(NamedTuple):
@@ -114,6 +123,84 @@ def sample_support(g, batch: Batch, dst_table: torch.Tensor, k: int, n: int,
     sub_tgt = S.find_k_hop(g, draws.u_tgt, batch.dst, batch.ts, k, n, eids=eidx)
     sub_bgd = S.find_k_hop(g, draws.u_bgd, bgd, batch.ts, k, n)
     return bgd, sub_src, sub_tgt, sub_bgd
+
+
+class BaseTrainStep:
+    """The stateless bases' train step (TGAT): ``step(batch, draws) ->
+    {"loss", "pos", "neg"}``, one step of ``optimizer`` on the BCE of the
+    positive and negative logits over the three ``k``-hop supports (cut at
+    the batch time, as the JAX step's ``use_eidx=False``). The gradients
+    stay in the parameters' ``.grad`` until the next step."""
+
+    def __init__(self, model, g_train, feats, dst_table: torch.Tensor, k: int,
+                 n: int, optimizer: torch.optim.Optimizer):
+        self.model, self.g, self.feats = model, g_train, feats
+        self.dst_table, self.k, self.n = dst_table, k, n
+        self.optimizer = optimizer
+
+    def draw(self, generator: torch.Generator, batch_size: int) -> StepDraws:
+        """The step's draws from ``generator`` in a fixed order: the support
+        (negatives, then per side the hops), then, when the model has
+        dropout, per embedding call (src, tgt, src, bgd) and per block the
+        probabilities' and fc's uniforms."""
+        dev = self.g.device
+        support = draw_support(generator, batch_size, self.k, self.n,
+                               self.dst_table.shape[0], dev)
+        dropout = None
+        if self.model.dropout > 0.0:
+            shapes = self.model.dropout_shapes(batch_size, self.n)
+            dropout = tuple(draw_dropout(generator, shapes, dev)
+                            for _ in range(4))
+        return StepDraws(support, dropout)
+
+    def __call__(self, batch: Batch, draws: StepDraws):
+        bgd, s_src, s_tgt, s_bgd = sample_support(
+            self.g, batch, self.dst_table, self.k, self.n, draws.support,
+            use_eidx=False)
+        self.optimizer.zero_grad(set_to_none=True)
+        pos, neg = self.model.contrast(self.feats, batch.src, batch.dst, bgd,
+                                       batch.ts, s_src, s_tgt, s_bgd,
+                                       drop=draws.dropout)
+        bce = nn.functional.binary_cross_entropy_with_logits
+        loss = bce(pos, torch.ones_like(pos)) + bce(neg, torch.zeros_like(neg))
+        loss.backward()
+        self.optimizer.step()
+        return {"loss": loss.detach(), "pos": pos.detach().squeeze(-1),
+                "neg": neg.detach().squeeze(-1)}
+
+
+def make_base_train_step(model, g_train, feats, dst_table, k, n,
+                         optimizer) -> BaseTrainStep:
+    return BaseTrainStep(model, g_train, feats, dst_table, k, n, optimizer)
+
+
+class BaseEvalStep:
+    """``step(batch, draws) -> (pos [B], neg [B])``: the stateless base's
+    logits over freshly sampled ``k``-hop supports, in eval form."""
+
+    def __init__(self, model, g_full, feats, dst_table: torch.Tensor, k: int,
+                 n: int):
+        self.model, self.g, self.feats = model, g_full, feats
+        self.dst_table, self.k, self.n = dst_table, k, n
+
+    def draw(self, generator: torch.Generator,
+             batch_size: int) -> SupportDraws:
+        return draw_support(generator, batch_size, self.k, self.n,
+                            self.dst_table.shape[0], self.g.device)
+
+    @torch.no_grad()
+    def __call__(self, batch: Batch, draws: SupportDraws):
+        bgd, s_src, s_tgt, s_bgd = sample_support(
+            self.g, batch, self.dst_table, self.k, self.n, draws,
+            use_eidx=False)
+        pos, neg = self.model.contrast(self.feats, batch.src, batch.dst, bgd,
+                                       batch.ts, s_src, s_tgt, s_bgd)
+        return pos.squeeze(-1), neg.squeeze(-1)
+
+
+def make_base_eval_step(model, g_full, feats, dst_table, k,
+                        n) -> BaseEvalStep:
+    return BaseEvalStep(model, g_full, feats, dst_table, k, n)
 
 
 def stack_batches(events, batch_size: int, shuffle: bool, seed: int,

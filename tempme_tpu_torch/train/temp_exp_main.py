@@ -1,23 +1,27 @@
-"""TempME explainer training and evaluation on a frozen TGN.
+"""TempME explainer training and evaluation on a frozen TGN or TGAT.
 
 Usage:
     python -m tempme_tpu_torch.train.temp_exp_main --data wikipedia \
         --data_dir processed --base_type tgn --n_epoch 10 --bs 100
 
-Port of ``tempme_tpu/train/temp_exp_main.py`` for a TGN base. Per train
-step: the negatives, the three 2-hop supports (``sample_rows``) and the
-three sides' motif walks (``sample_union``, ``sample_masked``) are sampled
-on the card; the frozen base labels the batch (``attend``); the explainer
-scores the walks, carries the scores onto the support edges
-(``walk_to_edge``) and samples them by the Beta reparameterisation; the base
-runs again with those weights on its attention probabilities, and Adam (or
-AdamW) steps the explainer on BCE(pred, y_ori) + beta * KL(motif prior),
-the gradient reaching the weights through ``attend_bwd`` and
-``walk_to_edge``'s backward. The eval step adds fidelity (prob and logit)
-and the 16-ratio sweep through ``TGN.ratio_contrast``.
+Port of ``tempme_tpu/train/temp_exp_main.py`` for TGN and TGAT bases. Per
+train step: the negatives, the three supports (``sample_rows``; as many
+hops as the base has layers, 3 for the default TGAT) and the three sides'
+motif walks (``sample_union``, ``sample_masked``) are sampled on the card;
+the frozen base labels the batch (``attend``); the explainer (``TempME``,
+or ``TempMETGAT``, which also reads the anchor pair) scores the walks,
+carries the scores onto the hop-0 and hop-1 support edges
+(``walk_to_edge``) and samples them by the Beta reparameterisation; the
+base runs again with those weights on its attention probabilities (a
+3-layer TGAT's hop 2 unweighted), and Adam (or AdamW) steps the explainer
+on BCE(pred, y_ori) + beta * KL(motif prior), the gradient reaching the
+weights through ``attend_bwd`` and ``walk_to_edge``'s backward. The eval
+step adds fidelity (prob and logit) and the 16-ratio sweep through the
+base's ``ratio_contrast`` (a 3-layer TGAT's in chunks of 4 ratios, which
+bounds its [R * B, n**2, D] levels).
 
 The driver reads the base checkpoint that ``learn_base`` wrote
-(``{ckpt_dir}/tgnn/tgn_{data}.pt``), keeps the best explainer on val
+(``{ckpt_dir}/tgnn/{base_type}_{data}.pt``), keeps the best explainer on val
 Ratio-APS (a resumed run must strictly beat the restored best), writes a
 train-state checkpoint each epoch (and every ``--ckpt_every_steps``
 steps), resumes from it (``--resume``), and evaluates a saved explainer
@@ -43,6 +47,7 @@ from ..data.graph import build_temporal_graph
 from ..explain.null_model import get_null_distribution
 from ..explain.tempme import (EdgeDraws, ImpDraws, TempME, kl_sparsity_loss,
                               make_walk_inputs)
+from ..explain.tempme_tgat import TempMETGAT, TGATImpDraws
 from ..models.common import Features
 from ..ops import sampler as S
 from ..utils import metrics as M
@@ -54,27 +59,43 @@ from .base_loader import LoadedBase, load_base
 from .learn_base import write_results
 
 N_WALK_CONT = 3          # continuations per first walk event
+DEEP_SWEEP_CHUNK = 4     # ratios per ratio_contrast of a 3-hop TGAT
 
 
 class ExplainerDraws(NamedTuple):
     """Every random number one explainer step consumes. ``imp`` and
-    ``edge`` (per side) are the dropout uniforms, None in eval; ``gamma``
-    is per side the Beta sample's draws (ga0, gb0, ga1, gb1), or a
-    ``torch.Generator`` to take them from, or None in eval."""
+    ``edge`` (per side) are the explainer's dropout uniforms (a TGAT's
+    explainer has no ``edge``), None in eval. ``gamma`` is per side the
+    Beta sample's draws (ga0, gb0, ga1, gb1), or a ``torch.Generator`` to
+    take them from, or None in eval."""
     support: loops.SupportDraws
     walks: tuple                       # per side S.WalkDraws
-    imp: Optional[tuple] = None        # per side ImpDraws
+    imp: Optional[tuple] = None        # per side ImpDraws or TGATImpDraws
     edge: Optional[tuple] = None       # per side EdgeDraws
     gamma: object = None
 
 
 def make_base_contrast(base: LoadedBase):
     """``contrast(feats, src, tgt, bgd, ts, eidx, subs, explain) -> (pos,
-    neg)`` logits [B, 1] of the frozen base, the memory left as it was;
-    ``explain`` is None or per hop the stacked [3B, width] weights of the
-    three sides (src, tgt, bgd)."""
+    neg)`` logits [B, 1] of the frozen base, a TGN's memory left as it
+    was; ``explain`` is None or per hop the stacked [3B, width] weights of
+    the three sides (src, tgt, bgd). A TGAT takes them as its pair of
+    pairs, hops deeper than the explanation's unweighted."""
+    if base.base_type == "tgat":
+        def contrast_tgat(feats, src, tgt, bgd, ts, eidx, subs, explain):
+            ew = None
+            if explain is not None:
+                hops = [h.chunk(3, dim=0) for h in explain]
+                pad = [None] * (len(subs[0].nodes) - len(hops))
+                imp_src, imp_tgt, imp_bgd = ([hop[i] for hop in hops] + pad
+                                             for i in range(3))
+                ew = ((imp_src, imp_tgt), (imp_src, imp_bgd))
+            return base.model.contrast(feats, src, tgt, bgd, ts, *subs,
+                                       explain_weights=ew)
+        return contrast_tgat
     if base.base_type != "tgn":
-        raise NotImplementedError(f"{base.base_type} bases are not ported")
+        raise NotImplementedError(f"{base.base_type} bases are not ported "
+                                  "yet (ROADMAP item A11)")
 
     def contrast(feats, src, tgt, bgd, ts, eidx, subs, explain):
         ew = None
@@ -89,10 +110,11 @@ def make_base_contrast(base: LoadedBase):
 
 
 def sample_explainer_inputs(g, batch: loops.Batch, dst_table, n_degree: int,
-                            draws: ExplainerDraws):
-    """Negatives, the three 2-hop supports (cut at the batch's edges for
-    src and tgt) and the three sides' walks, on the graph's device."""
-    bgd, *subs = loops.sample_support(g, batch, dst_table, 2, n_degree,
+                            draws: ExplainerDraws, k_hops: int = 2):
+    """Negatives, the three ``k_hops``-hop supports (cut at the batch's
+    edges for src and tgt; as deep as the base) and the three sides' walks
+    (from hop 0), on the graph's device."""
+    bgd, *subs = loops.sample_support(g, batch, dst_table, k_hops, n_degree,
                                       draws.support, use_eidx=True)
     walks = tuple(make_walk_inputs(S.find_k_walks(
         g, wd, anchor, sub, n_degree, N_WALK_CONT))
@@ -126,34 +148,47 @@ def keep_masks_for_ratios(explanation, ratios, n_degree: int):
 
 class _Steps:
     """What the train and eval steps share: the explainer, the frozen base,
-    the graph, the features, the negatives' table and the prior."""
+    the graph, the features, the negatives' table and the prior. The
+    supports are as deep as the base (a TGAT's layers, a TGN's 2 hops)."""
 
-    def __init__(self, explainer: TempME, base: LoadedBase, g, feats,
-                 dst_table, n_degree: int, null_dist, prior_p: float):
+    def __init__(self, explainer, base: LoadedBase, g, feats, dst_table,
+                 n_degree: int, null_dist, prior_p: float):
         self.explainer, self.base, self.g = explainer, base, g
         self.feats, self.dst_table, self.n = feats, dst_table, n_degree
         self.null_dist, self.prior_p = null_dist, prior_p
         self.contrast = make_base_contrast(base)
+        self.is_tgat = base.base_type == "tgat"
+        self.k_hops = base.model.num_layers if self.is_tgat else 2
 
     def _support_and_walks(self, generator, batch_size):
         dev = self.g.device
-        support = loops.draw_support(generator, batch_size, 2, self.n,
-                                     self.dst_table.shape[0], dev)
+        support = loops.draw_support(generator, batch_size, self.k_hops,
+                                     self.n, self.dst_table.shape[0], dev)
         walks = tuple(S.draw_walks(generator, batch_size, self.n,
                                    N_WALK_CONT, dev) for _ in range(3))
         return support, walks
 
     def _forward(self, batch, draws: ExplainerDraws, training: bool):
         bgd, subs, walks = sample_explainer_inputs(
-            self.g, batch, self.dst_table, self.n, draws)
+            self.g, batch, self.dst_table, self.n, draws, self.k_hops)
         args = (batch.src, batch.dst, bgd, batch.ts, batch.eidx, subs)
         with torch.no_grad():
             pos_ori, neg_ori = self.contrast(self.feats, *args, None)
-        imps = [self.explainer(self.feats, walks[i], batch.ts,
-                               None if draws.imp is None else draws.imp[i])
-                for i in range(3)]
-        explanation = self.explainer.retrieve_explanation(
-            self.feats, subs, imps, walks, training, draws.edge, draws.gamma)
+        imp = draws.imp or (None,) * 3
+        if self.is_tgat:     # each side's walks read with its anchor pair
+            imps = [self.explainer(self.feats, walks[i], a, batch.ts, o,
+                                   imp[i])
+                    for i, (a, o) in enumerate(((batch.src, batch.dst),
+                                                (batch.dst, batch.src),
+                                                (bgd, batch.src)))]
+            explanation = self.explainer.retrieve_explanation(
+                self.feats, subs, imps, walks, training, draws.gamma)
+        else:
+            imps = [self.explainer(self.feats, walks[i], batch.ts, imp[i])
+                    for i in range(3)]
+            explanation = self.explainer.retrieve_explanation(
+                self.feats, subs, imps, walks, training, draws.edge,
+                draws.gamma)
         pos, neg = self.contrast(self.feats, *args, explanation)
         kl = sum(kl_sparsity_loss(imps[i], walks[i].cat, self.null_dist,
                                   self.prior_p) for i in range(3))
@@ -174,21 +209,24 @@ class ExplainerTrainStep(_Steps):
     def draw(self, generator: torch.Generator,
              batch_size: int) -> ExplainerDraws:
         """The step's draws from ``generator`` in a fixed order: support,
-        walks, then per side the importance's and the gate's dropout
-        uniforms; the gamma draws come from the same generator inside the
-        step."""
+        walks, then per side the importance's dropout uniforms, then per
+        side the gate's (a TGN's explainer); the gamma draws come from the
+        same generator inside the step."""
         support, walks = self._support_and_walks(generator, batch_size)
         imp = edge = None
         if self.explainer.dropout > 0.0:
             dev = self.g.device
-            imp_s, edge_s = self.explainer.draw_shapes(
-                batch_size, self.n * N_WALK_CONT)
 
             def rand(shapes, cls):
                 return cls(*(torch.rand(s, generator=generator, device=dev)
                              for s in shapes))
-            imp = tuple(rand(imp_s, ImpDraws) for _ in range(3))
-            edge = tuple(rand(edge_s, EdgeDraws) for _ in range(3))
+            shapes = self.explainer.draw_shapes(batch_size,
+                                                self.n * N_WALK_CONT)
+            if self.is_tgat:
+                imp = tuple(rand(shapes, TGATImpDraws) for _ in range(3))
+            else:
+                imp = tuple(rand(shapes[0], ImpDraws) for _ in range(3))
+                edge = tuple(rand(shapes[1], EdgeDraws) for _ in range(3))
         return ExplainerDraws(support, walks, imp, edge,
                               generator if self.if_bern else None)
 
@@ -233,9 +271,16 @@ class ExplainerEvalStep(_Steps):
     def __call__(self, batch: loops.Batch, draws: ExplainerDraws):
         out = self._forward(batch, draws, training=False)
         keeps = keep_masks_for_ratios(out["explanation"], self.ratios, self.n)
-        pos_r, neg_r = self.base.model.ratio_contrast(
-            self.feats, self.base.memory, batch.src, batch.dst, out["bgd"],
-            batch.ts, *out["subs"], *keeps)
+        args = (batch.src, batch.dst, out["bgd"], batch.ts, *out["subs"])
+        if self.is_tgat:
+            # a 3-hop pyramid sweeps 4 ratios at a time (the JAX package's
+            # lax.map over chunks), a 2-hop one all at once
+            pos_r, neg_r = self.base.model.ratio_contrast(
+                self.feats, *args, *keeps,
+                chunk=DEEP_SWEEP_CHUNK if self.k_hops > 2 else None)
+        else:
+            pos_r, neg_r = self.base.model.ratio_contrast(
+                self.feats, self.base.memory, *args, *keeps)
         pred = torch.cat([out["pos"], out["neg"]])
         return dict(y_ori=(torch.cat([out["pos_ori"], out["neg_ori"]]) > 0.0)
                     .float().squeeze(-1), pred=pred.squeeze(-1),
@@ -356,10 +401,16 @@ def main(argv=None, device=None):
         cache_dir=args.ckpt_dir, seed=tc.seed, device=dev)).to(dev)
     print("null distribution:", np.round(null_dist.cpu().numpy(), 4))
 
-    explainer = TempME(node_dim=ds.node_feat.shape[1],
-                       edge_dim=ds.edge_feat.shape[1], out_dim=ec.out_dim,
-                       hid_dim=ec.hid_dim, base_type=args.base_type,
-                       dropout=ec.dropout, device=dev, seed=tc.seed)
+    if args.base_type == "tgat":
+        explainer = TempMETGAT(node_dim=ds.node_feat.shape[1],
+                               edge_dim=ds.edge_feat.shape[1],
+                               out_dim=ec.out_dim, hid_dim=ec.hid_dim,
+                               dropout=ec.dropout, device=dev, seed=tc.seed)
+    else:
+        explainer = TempME(node_dim=ds.node_feat.shape[1],
+                           edge_dim=ds.edge_feat.shape[1], out_dim=ec.out_dim,
+                           hid_dim=ec.hid_dim, base_type=args.base_type,
+                           dropout=ec.dropout, device=dev, seed=tc.seed)
     print(f"explainer params: "
           f"{sum(x.numel() for x in explainer.parameters()):,} "
           f"device={dev}")

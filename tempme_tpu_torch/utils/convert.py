@@ -1,15 +1,26 @@
-"""Carry flax TGN and TempME weights across into the port's
-``state_dict``.
+"""Carry flax TGN, TGAT, TempME and TempMETGAT weights across into the
+port's ``state_dict``.
 
 The input is a flax parameter tree as nested dicts of numpy arrays (with or
-without the outer ``{"params": ...}``). The rules:
+without the outer ``{"params": ...}``); ``read_flax_msgpack`` reads one
+from a checkpoint the JAX package wrote (flax's msgpack format) without
+flax or a msgpack package. The rules:
 
 * a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight`` ``[out, in]``;
 * ``LayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
 * ``TimeEncode`` ``freq``/``phase`` carry over as they are;
 * ``attn_{i}`` becomes ``attn_layers.{i}``, ``nn.Sequential``'s
   ``layers_{j}`` becomes ``{j}``, and flax's auto-named ``Dense_{j}`` (the
-  explainer's ``EventGCN`` and motif attention) becomes ``fc{j+1}``;
+  explainer's ``EventGCN`` and motif attention, the TGAT explainer's
+  encoder layers) becomes ``fc{j+1}``, ``LayerNorm_{j}`` ``norm{j+1}``;
+* ``MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels (the TGAT
+  explainer's ``self_attn``) are 3-D: ``query``/``key``/``value``
+  ``[in, heads, head_dim]`` become ``weight [heads * head_dim, in]``,
+  ``out`` ``[heads, head_dim, out]`` becomes ``weight [out, heads *
+  head_dim]``, and the ``[heads, head_dim]`` biases are flattened;
+* a TGAT's ``attn_{i}`` holds its eight bias-free projections, ``fc``,
+  ``ln`` and the gated ``merger`` (``fc11`` ... ``fc22``), beside
+  ``time_encoder`` and ``affinity_score``: the rules above map it whole;
 * flax's ``GRUCell`` has dense layers ``ir``/``iz``/``in`` with bias and
   ``hr``/``hz`` without (``hn`` has one). The port's ``models/tgn.py``
   ``GRUCell`` has the same parameters, stacked: ``weight_ih = cat(ir, iz,
@@ -21,6 +32,7 @@ without the outer ``{"params": ...}``). The rules:
 from __future__ import annotations
 
 import re
+import struct
 
 import numpy as np
 import torch
@@ -46,9 +58,10 @@ def _module_name(name: str) -> str:
     m = re.fullmatch(r"attn_(\d+)", name)
     if m:
         return f"attn_layers.{m.group(1)}"
-    m = re.fullmatch(r"Dense_(\d+)", name)
+    m = re.fullmatch(r"(Dense|LayerNorm)_(\d+)", name)
     if m:
-        return f"fc{int(m.group(1)) + 1}"
+        stem = "fc" if m.group(1) == "Dense" else "norm"
+        return f"{stem}{int(m.group(2)) + 1}"
     m = re.fullmatch(r"layers_(\d+)", name)
     return m.group(1) if m else name
 
@@ -60,16 +73,20 @@ def _walk(tree: dict, prefix: str, out: dict) -> None:
         elif isinstance(val, dict):
             _walk(val, prefix + _module_name(name) + ".", out)
         elif name == "kernel":
-            out[prefix + "weight"] = _t(np.asarray(val).T)
+            k = np.asarray(val)
+            if k.ndim == 3:                    # attention's DenseGeneral
+                k = k.reshape(-1, k.shape[2]) if prefix.endswith("out.") \
+                    else k.reshape(k.shape[0], -1)
+            out[prefix + "weight"] = _t(k.T)
         elif name == "scale":
             out[prefix + "weight"] = _t(val)
         else:                                  # bias, freq, phase
-            out[prefix + name] = _t(val)
+            out[prefix + name] = _t(np.asarray(val).reshape(-1))
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax parameter tree of a TGN or a TempME explainer (or of one of
-    their submodules) -> the
+    """Flax parameter tree of a TGN, a TGAT, or a TempME or TempMETGAT
+    explainer (or of one of their submodules) -> the
     matching port module's ``state_dict`` as CPU float32 tensors (load it
     with ``module.load_state_dict``)."""
     if set(params) == {"params"}:
@@ -77,3 +94,89 @@ def flax_to_state_dict(params: dict) -> dict:
     out: dict = {}
     _walk(params, "", out)
     return out
+
+
+class _Reader:
+    """The subset of msgpack that flax's checkpoints use: maps, arrays,
+    strings, binaries, unsigned integers (array shapes), and flax's
+    extension 1 (an ndarray packed as [shape, dtype name, C-order bytes])
+    and 3 (a numpy scalar, packed the same way)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def take(self, n: int) -> bytes:
+        out = self.data[self.pos:self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack data")
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def ext(self, code: int, size: int):
+        payload = _Reader(self.take(size)).read()
+        if code not in (1, 3):
+            raise ValueError(f"msgpack extension {code} is not a flax array")
+        shape, dtype, raw = payload
+        arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+        return arr.copy() if code == 1 else arr[()]
+
+    def read(self):
+        b = self.take(1)[0]
+        if b <= 0x7f:
+            return b
+        if 0x80 <= b <= 0x8f:
+            return self.map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return [self.read() for _ in range(b & 0x0f)]
+        if 0xa0 <= b <= 0xbf:
+            return self.take(b & 0x1f).decode()
+        sized = {0xc4: "B", 0xc5: "H", 0xc6: "I", 0xd9: "B", 0xda: "H",
+                 0xdb: "I"}
+        if b in sized:
+            raw = self.take(self.unpack(sized[b]))
+            return raw if b <= 0xc6 else raw.decode()
+        unsigned = {0xcc: "B", 0xcd: "H", 0xce: "I", 0xcf: "Q"}
+        if b in unsigned:
+            return self.unpack(unsigned[b])
+        if b in (0xdc, 0xdd):
+            return [self.read()
+                    for _ in range(self.unpack("H" if b == 0xdc else "I"))]
+        if b in (0xde, 0xdf):
+            return self.map(self.unpack("H" if b == 0xde else "I"))
+        if 0xd4 <= b <= 0xd8:
+            code = self.unpack("b")
+            return self.ext(code, 1 << (b - 0xd4))
+        if b in (0xc7, 0xc8, 0xc9):
+            size = self.unpack({0xc7: "B", 0xc8: "H", 0xc9: "I"}[b])
+            return self.ext(self.unpack("b"), size)
+        raise ValueError(f"msgpack type byte {b:#x} is not supported")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+
+def read_flax_msgpack(path: str) -> dict:
+    """A flax checkpoint (``flax.serialization.to_bytes``) as nested dicts
+    of numpy arrays. Arrays that flax split into chunks (leaves above 1 GiB)
+    are refused."""
+    with open(path, "rb") as f:
+        reader = _Reader(f.read())
+    tree = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+
+    def check(node):
+        if isinstance(node, dict):
+            if "__msgpack_chunked_array__" in node:
+                raise ValueError(f"{path}: chunked arrays are not supported")
+            for v in node.values():
+                check(v)
+    check(tree)
+    return tree

@@ -268,6 +268,73 @@ def test_attend_kernels_bf16_and_explain_weight_grad(cuda, m, h, n, dk,
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
 
 
+# The 3-layer TGAT's attention, h 2, n 20, at d_k 258 (width 172: 516 / 2)
+# and 173 (the committed uslegis checkpoint: 345 / 2 rounded up; its bf16
+# rows of 692 bytes take 4-byte copies, 1,032 bytes 8-byte ones), at the
+# TGAT paths' rows: m 32 (the root at batch 32), 640 (hop 1), 12,800
+# (hop 2), 40,000 (the explainer's hop 2 at batch 100) and 8,000 (the
+# ratio sweep's 4 ratios x batch 100 x 20).
+TGAT_ATTEND = [(m, dk) for dk in (258, 173)
+               for m in (32, 640, 8000, 12800, 40000)]
+
+
+@pytest.mark.parametrize("m,dk", TGAT_ATTEND)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend_kernels_at_tgat_shapes(cuda, m, dk, dtype):
+    """``attend`` (mask and explain weight), ``attend_drop`` (rate 0.1) and
+    ``attend_bwd`` in its training form (dropout, no explain weight, no
+    ``dattn``) and with the explain weight's gradient, each against its
+    plain version at the tolerances above (float32; bf16 dq, dk, dv). The
+    forwards are held against the plain version evaluated in float64 and
+    rounded to float32: at d_k 258 the float32 plain version's own sums of
+    258 terms round in another order than the kernel's, and against it 3
+    of 20.6 million outputs at m 40,000 missed atol 1e-6."""
+    h, n = 2, 20
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + dk)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    q, k, v = (randn(*s).to(dtype)
+               for s in ((m, h, dk), (m, n, h, dk), (m, n, h, dk)))
+    mask = rand(m, n) < 0.3
+    mask[0] = True
+    ew, u, dout = rand(m, n), rand(m, h, n), randn(m, h, dk)
+    scale = 1.0 / dk ** 0.5
+    before = [f.launches for f in (attend, attend_drop, attend_bwd)]
+    got = [attend(q, k, v, mask, ew, scale),
+           attend_drop(q, k, v, mask, None, u, 0.1, scale)]
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    want = [attend_plain(q64, k64, v64, mask, ew.double(), scale),
+            attend_drop_plain(q64, k64, v64, mask, None, u.double(), 0.1,
+                              scale)]
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y.float(), rtol=1e-5, atol=1e-6)
+    del got, want, q64, k64, v64
+    for args, ew_grad in (((mask, None, u, 0.1), False),
+                          ((mask, ew, None, 0.0), True)):
+        got = attend_bwd(q, k, v, *args, scale, dout, None, ew_grad=ew_grad)
+        want = attend_bwd_plain(q, k, v, *args, scale, dout, None,
+                                ew_grad=ew_grad)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            else:
+                torch.testing.assert_close(a.float(), b.float(), rtol=1e-2,
+                                           atol=1e-4)
+        if ew_grad:
+            torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5)
+        del got, want
+    assert [f.launches - b for f, b in zip(
+        (attend, attend_drop, attend_bwd), before)] == [1, 1, 2]
+
+
 def _pair_queries(g, q, seed):
     r = np.random.RandomState(seed)
     a = r.randint(0, g.num_nodes, q).astype(np.int32)
@@ -413,6 +480,26 @@ def test_sample_rows_kernel_bitwise_on_a_hub(cuda, q, n, edge_cut):
     and others; cuts at the hub's own timestamps (repeated many times),
     anywhere, and at 0; edge cuts at the hub's events, anywhere, or edge
     0. n 33 takes more draws than a warp has lanes."""
+    _sample_rows_on_a_hub(cuda, q, n, edge_cut)
+
+
+@pytest.mark.parametrize("q", [12800, 40000])
+@pytest.mark.parametrize("edge_cut", [False, True])
+def test_sample_rows_kernel_bitwise_at_tgat_hop3(cuda, q, edge_cut):
+    """The 3-layer TGAT's hop 3 at n 20: Q 12,800 (training, batch 32) and
+    40,000 (the explainer, batch 100)."""
+    _sample_rows_on_a_hub(cuda, q, 20, edge_cut)
+
+
+@pytest.mark.parametrize("n", [3073, 4096])
+@pytest.mark.parametrize("edge_cut", [False, True])
+def test_sample_rows_kernel_bitwise_above_48kb(cuda, n, edge_cut):
+    """n above 3,072: the picks' shared memory (16 n bytes a block) passes
+    48 KB and the kernel opts in to more."""
+    _sample_rows_on_a_hub(cuda, 129, n, edge_cut)
+
+
+def _sample_rows_on_a_hub(cuda, q, n, edge_cut):
     src, dst, ts, label, e_idx = hub_events(5000, 200, 2000, seed=13,
                                             probes=ROW_PROBES)
     g = build_temporal_graph(EventStream(src, dst, ts, label, e_idx),
@@ -607,10 +694,13 @@ def test_walk_to_edge_fwd_count_matches_plain(cuda, s, t, b):
     """The forward's ``out`` bit for bit and ``cnt`` exactly, at slot
     counts from one to a table beyond 48 KB of shared memory (S 1,300) and
     target counts from one to more than a few blocks' 256 (T 2,100); the
-    backward to rtol 1e-5, atol 1e-5 on that ``cnt`` up to T 1,000. (At T
+    backward to rtol 1e-5, atol 1e-5 on that ``cnt`` up to T 1,000. At T
     2,100 a slot sums up to 2,100 shares, in another order than the plain
-    version's, and float32 rounding reaches 1.5e-5; the case is there for
-    the forward.)"""
+    version's, and float32 rounding reached 1.5e-5: there the backward is
+    held to the bound of two float32 sums of T terms, each off the exact
+    sum by at most T * 2^-24 times the sum of the terms' magnitudes, so
+    |kernel - plain| <= 2 T 2^-24 sum_t |ct / cnt| per slot (the shares'
+    magnitudes summed by the plain backward on |ct|)."""
     ids, imp, tgt, ct = (x.to(cuda) for x in _count_rows(b, s, t, seed=s * t))
     out, cnt = walk_to_edge_fwd(ids, imp, tgt)
     g_imp = walk_to_edge_bwd(ids, imp, tgt, out, cnt, ct)
@@ -624,6 +714,30 @@ def test_walk_to_edge_fwd_count_matches_plain(cuda, s, t, b):
     assert (cnt[2] == s).all() and not out[2].any()
     if t <= 1000:
         torch.testing.assert_close(g_imp, g_ref, rtol=1e-5, atol=1e-5)
+    else:
+        (mag,) = torch.autograd.grad(walk_to_edge_plain(ids, leaf, tgt),
+                                     [leaf], ct.abs())
+        bound = 2 * t * 2.0 ** -24 * mag
+        assert ((g_imp - g_ref).abs() <= bound).all(), \
+            ((g_imp - g_ref).abs() - bound).max().item()
+
+
+@pytest.mark.parametrize("s", [4097, 8192])
+@pytest.mark.parametrize("t", [20, 400, 2100])
+def test_walk_to_edge_fwd_above_table_cap(cuda, s, t):
+    """Rows of more than 4,096 slots, whose id table would not fit a
+    block's shared memory, take the scan path: ``out`` bit for bit and
+    ``cnt`` exactly, as below the cap."""
+    ids, imp, tgt, _ = (x.to(cuda) for x in _count_rows(20, s, t, seed=s + t))
+    before = walk_to_edge_fwd.launches
+    out, cnt = walk_to_edge_fwd(ids, imp, tgt)
+    ref = walk_to_edge_plain(ids, imp, tgt)
+    ref_cnt = walk_to_edge_count_plain(ids, imp, tgt)
+    torch.cuda.synchronize()
+    assert walk_to_edge_fwd.launches == before + 1
+    assert torch.equal(out, ref)
+    assert torch.equal(cnt, ref_cnt)
+    assert (cnt[2] == s).all() and not out[2].any()
 
 
 def test_explainer_steps_launch_counts(cuda):
