@@ -47,14 +47,28 @@ script
    not of width), and checks the loss, the APs, the files and the launches
    per step (each block's forward again in the backward: its blocks are
    checkpointed); resumes the state of a run stopped at a mid-epoch
-   checkpoint; runs ``--eval_only`` on that TGAT and on the TGN of step 5,
-   each reproducing the test metrics its training run wrote; holds one
-   TGAT train step on the card against the CPU, and the committed uslegis
-   TGAT (read by the port's own msgpack reader) at float32 and bf16;
-   trains the explainer one epoch on the TGAT (3-hop supports, the sweep
-   in chunks of 4 ratios), resumes it, runs its ``--eval_only``; traces 20
-   TGAT train steps;
-9. prints its run time, one JSON line of kernel numbers, the card again,
+   checkpoint; holds one TGAT train step on the card against the CPU, and
+   the committed uslegis TGAT (read by the port's own msgpack reader) at
+   float32 and bf16; trains the explainer one epoch on the TGAT (3-hop
+   supports, the sweep in chunks of 4 ratios), resumes it, runs its
+   ``--eval_only``; traces 20 TGAT train steps;
+9. trains GraphMixer at ``learn_base.main``'s default flags (3 mixer
+   blocks, 20 neighbours = tokens, width 172, batch 256) for one epoch on
+   the same 30,000-event cut, and checks the loss, the APs, the files
+   (meta ``n_layer`` 3, the block count) and 6 ``sample_rows`` launches
+   per step; resumes the state of a run stopped at a mid-epoch
+   checkpoint; runs ``--eval_only`` on that
+   GraphMixer and on the TGAT of step 8, each reproducing the test metrics
+   its training run wrote exactly, and on the TGN of step 5, which scores
+   test from the checkpoint's memory and must equal ``evaluate_tgn`` run
+   from that memory, exactly; holds one GraphMixer train step and the
+   committed uslegis GraphMixer (3 blocks) on the card against the CPU;
+   trains the explainer one epoch on the GraphMixer (hop-0 explanations),
+   checks its numbers, files and launches, resumes it, runs its
+   ``--eval_only`` and holds one explainer train step and one eval step's
+   sweep against the CPU; traces 20 GraphMixer and 20 explainer train
+   steps;
+10. prints its run time, one JSON line of kernel numbers, the card again,
    and the last line ``{"ok": true, "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
@@ -90,6 +104,10 @@ H100_INT32_OPS_PER_S = 67e12 / 4    # 32-bit integer compares, selects and
 
 
 def say(msg):
+    """Print ``msg``; a phase's heading (``[name] ...``) after the seconds
+    since the start."""
+    if msg.startswith("["):
+        msg = f"{time.perf_counter() - T0:7.1f} s {msg}"
     print(msg, flush=True)
 
 
@@ -437,13 +455,17 @@ def profile_steps(run, n_steps=20):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, count = {}, {}
-    for e in prof.events():
-        # user annotations (``Optimizer.step#...``) span kernels, not one
-        if e.device_type == DeviceType.CUDA and \
-                not getattr(e, "is_user_annotation", False):
-            us = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + us
-            count[e.name] = count.get(e.name, 0) + 1
+    # the raw events: building the profiler's event tree of a step's CPU
+    # ops took most of a minute for 20 TGAT steps; device work only, no
+    # memory records, no user annotations (``Optimizer.step#...`` spans
+    # kernels, not one)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA and \
+                not e.is_user_annotation() and not e.is_hidden_event() and \
+                name not in ("[memory]", "[OutOfMemory]"):
+            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
+            count[name] = count.get(name, 0) + 1
     busy = sum(by_name.values())
     if not by_name:
         say("  the profiler saw no device time")
@@ -1199,10 +1221,12 @@ def explain_eval_only(ds_dir, ckpt_dir, out, results, base_type="tgn",
         f"{worst:.3e}): APS {ev['aps']:.6f}, ratio APS {ev['r_aps']:.6f}")
 
 
-def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype):
+def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype, base_type="tgn",
+                       data=DATA_NAME):
     """The explainer's train and eval steps on ``dev`` from the checkpoints
-    of [train] and [explain]: the frozen base at ``compute_dtype``, the
-    trained explainer, a fresh Adam, the graphs, features and tables."""
+    of [train] and [explain] (or [mixer-train] and [mixer-explain]): the
+    frozen base (a TGN's projections at ``compute_dtype``), the trained
+    explainer, a fresh Adam, the graphs, features and tables."""
     import numpy as np
     import torch
     from tempme_tpu_torch.data.events import RandEdgeSampler
@@ -1212,7 +1236,8 @@ def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype):
     from tempme_tpu_torch.train import temp_exp_main as X
     from tempme_tpu_torch.train.base_loader import load_base
     from tempme_tpu_torch.utils.checkpoint import load_checkpoint
-    base = load_base(os.path.join(ckpt_dir, "tgnn", f"tgn_{DATA_NAME}.pt"),
+    base = load_base(os.path.join(ckpt_dir, "tgnn",
+                                  f"{base_type}_{data}.pt"),
                      device=dev, compute_dtype=compute_dtype)
     nn_, ne = ds.full.num_nodes, ds.full.num_edges
     g_train = build_temporal_graph(ds.train, nn_, ne, device=dev)
@@ -1220,11 +1245,11 @@ def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype):
     feats = Features(torch.from_numpy(ds.node_feat).to(dev),
                      torch.from_numpy(ds.edge_feat).to(dev))
     null = torch.from_numpy(np.load(os.path.join(
-        ckpt_dir, f"null_{DATA_NAME}_n{N_DEGREE}_s{SEED}.npy"))).to(dev)
+        ckpt_dir, f"null_{data}_n{N_DEGREE}_s{SEED}.npy"))).to(dev)
     explainer = TempME(ds.node_feat.shape[1], ds.edge_feat.shape[1],
-                       device=dev, seed=SEED)
+                       base_type=base_type, device=dev, seed=SEED)
     blob, _ = load_checkpoint(os.path.join(
-        ckpt_dir, "explainer", "tgn", f"{DATA_NAME}.pt"), map_location=dev)
+        ckpt_dir, "explainer", base_type, f"{data}.pt"), map_location=dev)
     explainer.load_state_dict(blob["params"])
     opt = torch.optim.Adam(explainer.parameters(), lr=LR)
 
@@ -1240,7 +1265,8 @@ def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype):
     return train, ev
 
 
-def check_explainer_against_cpu(ds, ckpt_dir, dev):
+def check_explainer_against_cpu(ds, ckpt_dir, dev, base_type="tgn",
+                                data=DATA_NAME, logit_atol=1e-5):
     """One explainer train step (batch 100, dropout 0.1, Beta sampling) on
     the card and on the CPU from the same checkpoints and the same draws
     (the gamma draws injected), the base at float32: loss rtol 1e-4;
@@ -1249,14 +1275,18 @@ def check_explainer_against_cpu(ds, ckpt_dir, dev):
     elsewhere. Settled: at least 1e-4 of its tensor's largest and at least
     1e-5 (a thousand times Adam's eps: there the first step,
     lr * g / (|g| + eps), moves by under 1e-9 for a gradient error of
-    1e-3; the explainer's smallest tensors' gradients are about 1e-4). Then one eval step: the explained logits and, from the
-    same keep masks, the 16-ratio sweep's logits rtol 2e-4, atol 1e-5."""
+    1e-3; the explainer's smallest tensors' gradients are about 1e-4).
+    Then one eval step: the explained logits and, from the same keep
+    masks, the 16-ratio sweep's logits rtol 2e-4, atol ``logit_atol`` (a
+    GraphMixer's keep masks over its n hop-0 edges)."""
     import torch
     from tempme_tpu_torch.train import loops
     from tempme_tpu_torch.train import temp_exp_main as X
     cpu = torch.device("cpu")
-    tc, ec = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32)
-    tg, eg = explainer_steps_on(dev, ds, ckpt_dir, torch.float32)
+    tc, ec = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32, base_type,
+                                data)
+    tg, eg = explainer_steps_on(dev, ds, ckpt_dir, torch.float32, base_type,
+                                data)
     batch = loops.Batch(*(x[0] for x in loops.stack_batches(
         ds.train, EXPLAIN_BATCH, True, SEED + 1, cpu)))
     gen = torch.Generator(device=cpu)
@@ -1315,37 +1345,53 @@ def check_explainer_against_cpu(ds, ckpt_dir, dev):
                          training=False)
         for key in ("pos", "neg"):
             torch.testing.assert_close(fg[key].cpu(), fc[key], rtol=2e-4,
-                                       atol=1e-5)
+                                       atol=logit_atol)
+        hops = len(fc["explanation"])        # a GraphMixer's: hop 0 alone
         keeps = X.keep_masks_for_ratios(fc["explanation"], ec.ratios,
-                                        N_DEGREE)
-        own = X.keep_masks_for_ratios(fg["explanation"], eg.ratios, N_DEGREE)
+                                        N_DEGREE, hops)
+        own = X.keep_masks_for_ratios(fg["explanation"], eg.ratios, N_DEGREE,
+                                      hops)
         flips = sum(int((a.cpu() != b).sum()) for sa, sb in zip(own, keeps)
                     for a, b in zip(sa, sb))
         args = (ebatch.src, ebatch.dst, fc["bgd"], ebatch.ts, *fc["subs"])
-        pos_c, neg_c = ec.base.model.ratio_contrast(
-            ec.feats, ec.base.memory, *args, *keeps)
-        pos_g, neg_g = eg.base.model.ratio_contrast(
-            eg.feats, eg.base.memory, *to_device(args, dev),
-            *([k.to(dev) for k in side] for side in keeps))
+        pos_c, neg_c = ratio_sweep(ec, args, keeps)
+        pos_g, neg_g = ratio_sweep(eg, to_device(args, dev),
+                                   [[k.to(dev) for k in side]
+                                    for side in keeps])
     torch.cuda.synchronize()
     if pos_g.shape != (16, EXPLAIN_BATCH):
         raise AssertionError(f"the ratio sweep's shape {pos_g.shape}")
     for a, b in ((pos_g, pos_c), (neg_g, neg_c)):
-        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=logit_atol)
     err = max((pos_g.cpu() - pos_c).abs().max().item(),
               (neg_g.cpu() - neg_c).abs().max().item())
-    say(f"  eval step: explained logits agree; 16-ratio sweep pos_r, neg_r "
-        f"max abs err {err:.3e}; the card's own keep masks differ from the "
+    err_x = max((fg[k].cpu() - fc[k]).abs().max().item()
+                for k in ("pos", "neg"))
+    say(f"  eval step: explained logits max abs err {err_x:.3e}; 16-ratio "
+        f"sweep pos_r, neg_r max abs err {err:.3e} (rtol 2e-4, atol "
+        f"{logit_atol:g}); the card's own keep masks differ from the "
         f"CPU's in {flips} of {sum(k.numel() for s in keeps for k in s)} "
         f"entries (near-ties of the importance ranking)")
 
 
-def profile_explainer(ds, ckpt_dir, dev, n_steps=20):
-    """20 explainer train steps at batch 100 as the driver runs them (the
-    base at bf16, draws and gamma from a generator)."""
+def ratio_sweep(step, args, keeps):
+    """The base's ``ratio_contrast`` under the keep masks ``keeps``, as the
+    explainer's eval step calls it (a GraphMixer's hop 0 alone, a TGN with
+    its memory)."""
+    model = step.base.model
+    if step.base.base_type == "graphmixer":
+        return model.ratio_contrast(step.feats, *args, *(k[0] for k in keeps))
+    return model.ratio_contrast(step.feats, step.base.memory, *args, *keeps)
+
+
+def profile_explainer(ds, ckpt_dir, dev, n_steps=20, base_type="tgn",
+                      data=DATA_NAME):
+    """20 explainer train steps at batch 100 as the driver runs them (a
+    TGN base at bf16, draws and gamma from a generator)."""
     import torch
     from tempme_tpu_torch.train import loops
-    step, _ = explainer_steps_on(dev, ds, ckpt_dir, torch.bfloat16)
+    step, _ = explainer_steps_on(dev, ds, ckpt_dir, torch.bfloat16,
+                                 base_type, data)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 13)
     batches = loops.stack_batches(ds.train, EXPLAIN_BATCH, True, SEED + 3,
@@ -1409,6 +1455,18 @@ def tgat_train(ds, ds_dir, out, torch):
     ``TGAT_CKPT_STEP``, copied as the state of a run stopped right there
     ([tgat-resume] resumes it). Returns (launches, steps, numbers,
     snapshot)."""
+    return base_train(ds, ds_dir, out, torch, "tgat", tgat_argv,
+                      TGAT_PER_STEP, TGAT_BATCH, TGAT_CKPT_STEP, TGAT_DATA,
+                      layers=3)
+
+
+def base_train(ds, ds_dir, out, torch, base_type, argv_of, per_step, batch,
+               ckpt_step, data, layers):
+    """One epoch of ``learn_base.main`` on a stateless base (``argv_of``
+    gives its flags) at full width on the card, with ``per_step`` launches
+    of each kernel per train and eval step; the run also writes a
+    checkpoint at step ``ckpt_step``, copied as the state of a run stopped
+    right there. Returns (launches, steps, numbers, snapshot)."""
     import math
     import shutil
     from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
@@ -1417,17 +1475,17 @@ def tgat_train(ds, ds_dir, out, torch):
     from tempme_tpu_torch.train import learn_base
     kernels = {"sample_rows": sample_rows, "attend": attend,
                "attend_drop": attend_drop, "attend_bwd": attend_bwd}
-    train_steps = len(ds.train) // TGAT_BATCH
-    eval_steps = math.ceil(len(ds.val) / TGAT_BATCH) + math.ceil(
-        len(ds.test) / TGAT_BATCH)
-    want = {k: TGAT_PER_STEP["train"][k] * train_steps
-            + TGAT_PER_STEP["eval"][k] * eval_steps for k in kernels}
+    train_steps = len(ds.train) // batch
+    eval_steps = math.ceil(len(ds.val) / batch) + math.ceil(
+        len(ds.test) / batch)
+    want = {k: per_step["train"][k] * train_steps
+            + per_step["eval"][k] * eval_steps for k in kernels}
     save = learn_base.save_checkpoint
     snapshot = os.path.join(out, "stopped.train_state")
 
     def snapshotting_save(path, blob, meta=None):
         save(path, blob, meta=meta)
-        if meta and meta.get("step") == TGAT_CKPT_STEP:
+        if meta and meta.get("step") == ckpt_step:
             shutil.copy(path, snapshot)
             shutil.copy(path + ".json", snapshot + ".json")
 
@@ -1440,8 +1498,8 @@ def tgat_train(ds, ds_dir, out, torch):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(printed):
-            test_ap = learn_base.main(tgat_argv(
-                ds_dir, out, "--ckpt_every_steps", str(TGAT_CKPT_STEP)))
+            test_ap = learn_base.main(argv_of(
+                ds_dir, out, "--ckpt_every_steps", str(ckpt_step)))
     finally:
         learn_base.save_checkpoint = save
     torch.cuda.synchronize()
@@ -1450,17 +1508,19 @@ def tgat_train(ds, ds_dir, out, torch):
     peak = torch.cuda.max_memory_allocated()
     for line in printed.getvalue().splitlines():
         say(f"    | {line}")
-    if f"layers=3 bs={TGAT_BATCH}" not in printed.getvalue():
-        raise AssertionError("the default flags did not give 3 layers at "
-                             f"batch {TGAT_BATCH}")
-    say(f"  launches on the TGAT training path: {launches} for "
+    if f"model={base_type}" not in printed.getvalue() or \
+            f"layers={layers} bs={batch}" not in printed.getvalue():
+        raise AssertionError(f"the flags did not give a {base_type} of "
+                             f"{layers} layers at batch {batch}")
+    say(f"  launches on the {base_type} training path: {launches} for "
         f"{train_steps} train and {eval_steps} eval steps; per step "
-        f"{TGAT_PER_STEP}")
+        f"{per_step}")
     check_launches(launches, want)
     tags = read_metrics(out)
     losses = tags["Train/step_loss"]
     if len(losses) != train_steps or not all(map(math.isfinite, losses)):
-        raise AssertionError("a TGAT train loss is missing or not finite")
+        raise AssertionError(f"a {base_type} train loss is missing or not "
+                             "finite")
     tenth = max(1, train_steps // 10)
     first, last = (sum(x) / len(x) for x in (losses[:tenth],
                                               losses[-tenth:]))
@@ -1468,21 +1528,22 @@ def tgat_train(ds, ds_dir, out, torch):
     val_ap = tags["Val/ap"][0]
     for name, ap in (("val", val_ap), ("test", test_ap)):
         if not 0.0 <= ap <= 1.0:
-            raise AssertionError(f"TGAT {name} AP {ap} outside [0, 1]")
+            raise AssertionError(f"{base_type} {name} AP {ap} outside "
+                                 "[0, 1]")
     if test_ap != tags["Test/ap"][0]:
         raise AssertionError("the returned test AP is not the logged one")
-    params = os.path.join(out, "params", "tgnn", f"tgat_{TGAT_DATA}.pt")
+    params = os.path.join(out, "params", "tgnn", f"{base_type}_{data}.pt")
     for path in (params, params + ".json", params + ".train_state",
-                 snapshot,
-                 os.path.join(out, "results", f"base_tgat_{TGAT_DATA}.json")):
+                 snapshot, os.path.join(out, "results",
+                                        f"base_{base_type}_{data}.json")):
         if not os.path.exists(path):
             raise AssertionError(f"missing {path}")
     with open(params + ".json") as f:
         meta = json.load(f)
     if (meta["node_dim"], meta["n_layer"], meta["n_degree"]) != (
-            172, 3, N_DEGREE):
-        raise AssertionError(f"TGAT checkpoint meta {meta}")
-    numbers = dict(train_ms_per_step=TGAT_BATCH / eps * 1e3,
+            172, layers, N_DEGREE):
+        raise AssertionError(f"{base_type} checkpoint meta {meta}")
+    numbers = dict(train_ms_per_step=batch / eps * 1e3,
                    events_per_s=eps, loss_first_tenth=first,
                    loss_last_tenth=last, val_ap=val_ap, test_ap=test_ap,
                    peak_gib=peak / 2 ** 30, wall_s=wall,
@@ -1492,9 +1553,10 @@ def tgat_train(ds, ds_dir, out, torch):
         f"first tenth {first:.6f}, last tenth {last:.6f}; val AP "
         f"{val_ap:.6f}, test AP {test_ap:.6f}; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB; main() {wall:.2f} s with loading and "
-        f"eval")
+        f"eval; checkpoint meta n_layer {meta['n_layer']}")
     if not last < first:
-        raise AssertionError("the TGAT loss did not fall over the epoch")
+        raise AssertionError(f"the {base_type} loss did not fall over the "
+                             "epoch")
     return launches, train_steps, numbers, snapshot
 
 
@@ -1503,47 +1565,95 @@ def tgat_resume(ds_dir, out, snapshot):
     wrote at its checkpoint of step ``TGAT_CKPT_STEP`` (what a run stopped
     right after it leaves), in a fresh output directory: the same checks
     as [resume]."""
+    base_resume(ds_dir, out, snapshot, "tgat", tgat_argv, TGAT_DATA,
+                TGAT_CKPT_STEP)
+
+
+def base_resume(ds_dir, out, snapshot, base_type, argv_of, data, ckpt_step):
+    """``--resume`` of a stateless base to the end of the epoch from the
+    state its training run wrote at its checkpoint of step ``ckpt_step``,
+    in a fresh output directory: it resumes there and finishes the epoch.
+    Returns the resumed run's output directory of checkpoints."""
     import shutil
     from tempme_tpu_torch.train import learn_base
     state = os.path.join(out, "params", "tgnn",
-                         f"tgat_{TGAT_DATA}.pt.train_state")
+                         f"{base_type}_{data}.pt.train_state")
     os.makedirs(os.path.dirname(state))
     shutil.copy(snapshot, state)
     shutil.copy(snapshot + ".json", state + ".json")
     with open(state + ".json") as f:
         meta = json.load(f)
-    if (meta["epoch"], meta["step"]) != (0, TGAT_CKPT_STEP):
+    if (meta["epoch"], meta["step"]) != (0, ckpt_step):
         raise AssertionError(f"mid-epoch checkpoint meta {meta}")
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
-        ap = learn_base.main(tgat_argv(ds_dir, out, "--ckpt_every_steps",
-                                       str(TGAT_CKPT_STEP), "--resume"))
+        ap = learn_base.main(argv_of(ds_dir, out, "--ckpt_every_steps",
+                                     str(ckpt_step), "--resume"))
     for line in printed.getvalue().splitlines():
         say(f"    | {line}")
-    if f"at epoch 0 step {TGAT_CKPT_STEP}" not in printed.getvalue():
-        raise AssertionError(f"the run did not resume at step "
-                             f"{TGAT_CKPT_STEP}")
+    if f"at epoch 0 step {ckpt_step}" not in printed.getvalue():
+        raise AssertionError(f"the run did not resume at step {ckpt_step}")
     with open(state + ".json") as f:
         meta = json.load(f)
     if meta["epoch"] != 0 or "step" in meta or not 0.0 <= ap <= 1.0:
         raise AssertionError(f"the resumed run did not finish: {meta}")
+    return os.path.dirname(state)
 
 
 def eval_only(argv, results, what):
-    """``learn_base --eval_only`` on a trained base: the test AP, AUC and
-    accuracy its training run wrote to ``results``, again (within 1e-6)."""
+    """``learn_base --eval_only`` on a trained stateless base: the test AP,
+    AUC and accuracy its training run wrote to ``results``, exactly."""
     from tempme_tpu_torch.train import learn_base
     with open(results) as f:
         saved = json.load(f)
     with contextlib.redirect_stdout(io.StringIO()):
         test = learn_base.main(argv + ["--eval_only"])
-    worst = max(abs(test[k] - saved[k]) for k in ("ap", "auc", "acc"))
-    if not worst <= 1e-6:
+    if any(test[k] != saved[k] for k in ("ap", "auc", "acc")):
         raise AssertionError(f"{what} --eval_only gave {test}, its training "
                              f"run wrote {saved}")
     say(f"  {what}: test AP {test['ap']:.6f}, AUC {test['auc']:.6f}, acc "
-        f"{test['acc']:.6f} (training run: AP {saved['ap']:.6f}; max "
-        f"difference {worst:.3e})")
+        f"{test['acc']:.6f}, equal to what its training run wrote")
+
+
+def tgn_eval_only(ds_dir, out, dev):
+    """``learn_base --eval_only`` on the TGN of [train] scores test from
+    the checkpoint's train-side memory, with no val pass first (the JAX
+    package's protocol): its AP, AUC and accuracy equal, exactly,
+    ``evaluate_tgn`` run here on the test split from the memory the
+    checkpoint saved. The training run's own test numbers (its memory
+    carried through val first) are printed beside them."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler, load_dataset
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.train import learn_base
+    from tempme_tpu_torch.train.base_loader import load_base
+    from tempme_tpu_torch.train.learn_tgn import (evaluate_tgn,
+                                                  make_tgn_eval_step)
+    with open(os.path.join(out, "results",
+                           f"base_tgn_{DATA_NAME}.json")) as f:
+        after_val = json.load(f)             # --eval_only rewrites it
+    with contextlib.redirect_stdout(io.StringIO()):
+        test = learn_base.main(train_argv(ds_dir, out, "--eval_only"))
+    ds = load_dataset(DATA_NAME, ds_dir)
+    base = load_base(os.path.join(out, "params", "tgnn",
+                                  f"tgn_{DATA_NAME}.pt"), device=dev)
+    dst = RandEdgeSampler([ds.train.src, ds.val.src, ds.test.src],
+                          [ds.train.dst, ds.val.dst, ds.test.dst]).dst_list
+    step = make_tgn_eval_step(
+        base.model, build_temporal_graph(ds.full, ds.full.num_nodes,
+                                         ds.full.num_edges, device=dev),
+        Features(torch.from_numpy(ds.node_feat).to(dev),
+                 torch.from_numpy(ds.edge_feat).to(dev)),
+        torch.from_numpy(dst).to(dev), N_DEGREE)
+    want, _ = evaluate_tgn(step, base.memory, ds.test, BATCH)
+    if any(test[k] != want[k] for k in ("ap", "auc", "acc")):
+        raise AssertionError(f"TGN --eval_only gave {test}; evaluate_tgn "
+                             f"from the saved memory gives {want}")
+    say(f"  TGN: test AP {test['ap']:.6f}, AUC {test['auc']:.6f}, acc "
+        f"{test['acc']:.6f}, equal to evaluate_tgn from the checkpoint's "
+        f"memory (the training run, its memory through val first: AP "
+        f"{after_val['ap']:.6f})")
 
 
 def tgat_steps_on(dev, ds, blob, compute_dtype):
@@ -1573,11 +1683,12 @@ def tgat_steps_on(dev, ds, blob, compute_dtype):
                                       N_DEGREE, opt)
 
 
-def compare_train_steps(step_c, aux_c, step_g, aux_g, what):
-    """Loss rtol 1e-4; gradients rtol 1e-3, atol 1e-4 of each tensor's
-    largest; params after Adam rtol 1e-5, atol 1e-6 where the gradient is
-    settled (at least 1e-4 of its tensor's largest), within lr elsewhere
-    (Adam turns round-off gradients into steps of up to lr)."""
+def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4):
+    """Loss rtol 1e-4; gradients rtol 1e-3, atol ``grad_atol`` (1e-4 by
+    default) of each tensor's largest; params after Adam rtol 1e-5, atol
+    1e-6 where the gradient is settled (at least 1e-4 of its tensor's
+    largest), within lr elsewhere (Adam turns round-off gradients into
+    steps of up to lr)."""
     import torch
     loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
     if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
@@ -1589,7 +1700,8 @@ def compare_train_steps(step_c, aux_c, step_g, aux_g, what):
         pc = params_c[name]
         g_c, g_g = pc.grad, p.grad.cpu()
         top = g_c.abs().max().item()
-        torch.testing.assert_close(g_g, g_c, rtol=1e-3, atol=1e-4 * top,
+        torch.testing.assert_close(g_g, g_c, rtol=1e-3,
+                                   atol=grad_atol * top,
                                    msg=lambda m: f"{name} grad: {m}")
         worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
                                                                     1e-30))
@@ -1925,6 +2037,263 @@ def check_tgat_kernels(g, torch, dev):
     return rows, errs
 
 
+# ---------------------------------------------------------------------------
+# GraphMixer (3 mixer blocks, 20 neighbours = tokens, width 172: token FFN
+# int(0.5 * 20) = 10, channel FFN 4 * 172 = 688) on the TGAT phases' cut of
+# the stream, its first TGAT_EVENTS events (on all of it the script ran
+# past its time budget): a cut of scale, not of width
+MIXER_DATA = TGAT_DATA
+MIXER_BATCH = 256
+MIXER_REF_BATCH = 64                 # the card-vs-CPU train step's batch
+MIXER_CKPT_STEP = 50                 # [mixer-train]'s mid-epoch checkpoint
+MIXER_EXPLAIN_RESUME_STEP = 100
+# launches per step: a train or eval step samples 3 sides x 2 hops (the
+# model reads hop 0); GraphMixer runs no attention
+MIXER_PER_STEP = {
+    "train": dict(sample_rows=6, attend=0, attend_drop=0, attend_bwd=0),
+    "eval": dict(sample_rows=6, attend=0, attend_drop=0, attend_bwd=0)}
+# the explainer on a GraphMixer carries the walk importance onto hop 0
+# only (the JAX package computes hop 1 too and drops it): 3 sides a step
+MIXER_EXPLAIN_PER_STEP = {
+    "train": dict(sample_rows=6, sample_union=3, sample_masked=3,
+                  walk_to_edge=3, walk_to_edge_bwd=3, attend=0,
+                  attend_drop=0, attend_bwd=0),
+    "eval": dict(sample_rows=6, sample_union=3, sample_masked=3,
+                 walk_to_edge=3, walk_to_edge_bwd=0, attend=0,
+                 attend_drop=0, attend_bwd=0),
+    "null": EXPLAIN_PER_STEP["null"]}
+USLEGIS_MIXER = "params/tgnn/graphmixer_uslegis_sampled.msgpack"
+
+
+def mixer_argv(ds_dir, out, *extra):
+    """``learn_base --base_type graphmixer`` at its defaults (3 mixer
+    blocks, batch 256, dropout 0.1, Adam lr 1e-3), one epoch."""
+    return ["--data", MIXER_DATA, "--data_dir", ds_dir,
+            "--base_type", "graphmixer", "--n_degree", str(N_DEGREE),
+            "--n_epoch", "1", "--seed", str(SEED),
+            "--out_dir", os.path.join(out, "params", "tgnn"),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def mixer_steps_on(dev, ds, blob):
+    """The GraphMixer train step of the checkpoint ``blob`` on ``dev``:
+    model and Adam state loaded, train graph and features on ``dev``."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.graphmixer import GraphMixer
+    from tempme_tpu_torch.train import loops
+    g = build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    model = GraphMixer(ds.node_feat.shape[1], ds.edge_feat.shape[1],
+                       N_DEGREE, num_layers=3, dropout=DROPOUT, device=dev)
+    model.load_state_dict(blob["params"])
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    opt.load_state_dict(copy.deepcopy(blob["opt_state"]))
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    return loops.make_base_train_step(model, g, feats,
+                                      torch.from_numpy(dst).to(dev), 2,
+                                      N_DEGREE, opt)
+
+
+def check_mixer_train_against_cpu(ds, out, dev):
+    """One GraphMixer train step at full width (batch ``MIXER_REF_BATCH``)
+    on the card and on the CPU from the trained checkpoint, float32 as the
+    model always is, with the same draws (dropout 0.1 included). The
+    gradients' atol is 5e-4 of each tensor's largest, not 1e-4: the
+    backward runs through token LayerNorms over near-constant rows (padded
+    slots all hold the projection's bias; the frozen time encoding's low
+    frequencies give every token the same value), whose normaliser 1 /
+    sqrt(var + 1e-5) scales float32 round-off by up to 316, as
+    ``tests/test_torch_graphmixer.py`` finds against the JAX package."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"graphmixer_{MIXER_DATA}.pt.train_state"),
+        map_location="cpu")
+    cpu = torch.device("cpu")
+    step_c = mixer_steps_on(cpu, ds, blob)
+    step_g = mixer_steps_on(dev, ds, blob)
+    ffn = step_g.model.mixers[0]
+    if (ffn.token_ffn.hidden, ffn.channel_ffn.hidden) != (10, 688):
+        raise AssertionError("the GraphMixer's FFN widths are not 10, 688")
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, MIXER_REF_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 3)
+    draws = step_c.draw(gen, MIXER_REF_BATCH)
+    aux_c = step_c(batch, draws)
+    aux_g = step_g(to_device(batch, dev), to_device(draws, dev))
+    torch.cuda.synchronize()
+    compare_train_steps(step_c, aux_c, step_g, aux_g,
+                        "GraphMixer train step", grad_atol=5e-4)
+
+
+def check_uslegis_mixer(ds, dev):
+    """The committed uslegis GraphMixer (read by the port's own msgpack
+    reader: 3 blocks, 30 tokens, edge 1, so 1 channel; its meta says
+    ``n_layer`` 2, the support depth the JAX driver writes there) scores 8
+    events of the stream (edge features cut to width 1) over 2-hop supports
+    of its ``n_degree`` 30, on the card and on the CPU with the same
+    supports, at float32: rtol 2e-4, atol 1e-5."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.graphmixer import GraphMixer
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_meta
+    from tempme_tpu_torch.utils.convert import (flax_to_state_dict,
+                                                read_flax_msgpack)
+    path = os.path.join(ROOT, USLEGIS_MIXER)
+    meta = load_meta(path)
+    state = flax_to_state_dict(read_flax_msgpack(path))
+    blocks = len({k.split(".")[1] for k in state if k.startswith("mixers.")})
+    if (blocks, meta["n_layer"]) != (3, 2):
+        raise AssertionError(f"uslegis GraphMixer: {blocks} blocks, meta "
+                             f"n_layer {meta['n_layer']}")
+    cpu = torch.device("cpu")
+    n, b = int(meta["n_degree"]), 8
+    g = build_temporal_graph(ds.full, ds.full.num_nodes, ds.full.num_edges,
+                             device=cpu)
+    feats = Features(torch.from_numpy(ds.node_feat),
+                     torch.from_numpy(ds.edge_feat[:, :meta["edge_dim"]]
+                                      .copy()))
+    dst = torch.from_numpy(RandEdgeSampler([ds.test.src],
+                                           [ds.test.dst]).dst_list)
+    batch = next(loops.iter_batches(ds.test, b, False, cpu))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 23)
+    draws = loops.draw_support(gen, b, 2, n, dst.shape[0], cpu)
+    bgd, *subs = loops.sample_support(g, batch, dst, 2, n, draws,
+                                      use_eidx=False)
+    out = []
+    for d in (cpu, dev):
+        model = GraphMixer(meta["node_dim"], meta["edge_dim"], n,
+                           num_layers=blocks, dropout=0.0, device=d)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            out.append(model.contrast(
+                to_device(feats, d), *(x.to(d) for x in (
+                    batch.src, batch.dst, bgd, batch.ts)),
+                *(to_device(sub, d) for sub in subs)))
+    torch.cuda.synchronize()
+    for a, c in zip(out[1], out[0]):
+        torch.testing.assert_close(a.cpu(), c, rtol=2e-4, atol=1e-5)
+    err = max((a.cpu() - c).abs().max().item()
+              for a, c in zip(out[1], out[0]))
+    say(f"  uslegis GraphMixer contrast (3 blocks, batch {b}, n {n}): card "
+        f"against CPU max abs err {err:.3e} at float32 (rtol 2e-4, atol "
+        f"1e-5)")
+
+
+def profile_mixer_training(ds, out, dev, n_steps=20):
+    """20 GraphMixer train steps at batch 256 from the checkpoint's
+    state."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"graphmixer_{MIXER_DATA}.pt.train_state"),
+        map_location="cpu")
+    step = mixer_steps_on(dev, ds, blob)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    batches = loops.stack_batches(ds.train, MIXER_BATCH, True, SEED + 6, dev)
+    work = [(loops.Batch(*(x[i] for x in batches)),
+             step.draw(gen, MIXER_BATCH)) for i in range(n_steps)]
+
+    def run(i):
+        step(*work[i])
+    run(0)                                   # warm up off the window
+    profile_steps(run, n_steps)
+
+
+def graphmixer_phases(work, ds_dir, dsm, dev, torch):
+    """[mixer-train], [mixer-resume], [eval-only], [mixer-reference],
+    [mixer-explain] and [trace-mixer] on ``dsm``, the stream ``MIXER_DATA``
+    that ``ds_dir`` holds. Returns (training launches, explainer launches,
+    training numbers, explainer numbers)."""
+    out = os.path.join(work, "mixer")
+    say(f"[mixer-train] learn_base.main --base_type graphmixer at its "
+        f"default flags (3 mixer blocks, batch {MIXER_BATCH}, dropout "
+        f"{DROPOUT}, Adam lr {LR}), {N_DEGREE} neighbours = tokens, width "
+        f"172 (token FFN 10, channel FFN 688), one epoch on ml_{MIXER_DATA} "
+        f"(train {len(dsm.train)}, val {len(dsm.val)}, test "
+        f"{len(dsm.test)} events)")
+    launches, _, numbers, snap = base_train(
+        dsm, ds_dir, out, torch, "graphmixer", mixer_argv, MIXER_PER_STEP,
+        MIXER_BATCH, MIXER_CKPT_STEP, MIXER_DATA, layers=3)
+    say(f"[mixer-resume] --resume from the state of a run stopped right "
+        f"after its --ckpt_every_steps {MIXER_CKPT_STEP} checkpoint, to the "
+        f"end of the epoch")
+    t0 = time.perf_counter()
+    base_resume(ds_dir, os.path.join(work, "mixer_resume"), snap,
+                "graphmixer", mixer_argv, MIXER_DATA, MIXER_CKPT_STEP)
+    say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+    say("[eval-only] learn_base --eval_only on the GraphMixer of "
+        "[mixer-train], the TGAT of [tgat-train] and the TGN of [train]")
+    eval_only(mixer_argv(ds_dir, out), os.path.join(
+        out, "results", f"base_graphmixer_{MIXER_DATA}.json"), "GraphMixer")
+    tgat_out = os.path.join(work, "tgat")
+    eval_only(tgat_argv(ds_dir, tgat_out), os.path.join(
+        tgat_out, "results", f"base_tgat_{TGAT_DATA}.json"), "TGAT")
+    tgn_eval_only(ds_dir, os.path.join(work, "train"), dev)
+    say(f"[mixer-reference] one GraphMixer train step (batch "
+        f"{MIXER_REF_BATCH}, width 172, dropout {DROPOUT}) on the card "
+        f"against the CPU from the trained checkpoint at float32 (loss rtol "
+        f"1e-4; gradients rtol 1e-3, atol 5e-4 of the tensor's largest; "
+        f"params after Adam rtol 1e-5, atol 1e-6 where settled, within lr "
+        f"elsewhere); the committed uslegis GraphMixer's contrast")
+    check_mixer_train_against_cpu(dsm, out, dev)
+    check_uslegis_mixer(dsm, dev)
+    ckpt = os.path.join(out, "params")
+    say(f"[mixer-explain] temp_exp_main.main --base_type graphmixer on the "
+        f"frozen GraphMixer of [mixer-train] (hop-0 explanations): one "
+        f"epoch, batch {EXPLAIN_BATCH}, {N_DEGREE} neighbours, 60 walks a "
+        f"side, out_dim 40, hid_dim 64, dropout {DROPOUT}, Adam lr {LR}, "
+        f"then val and test with fidelity and the 16-ratio sweep")
+    x_launches, x_numbers, x_results, x_snap = explain(
+        dsm, ds_dir, ckpt, os.path.join(work, "mixer_explain"), torch,
+        base_type="graphmixer", data=MIXER_DATA,
+        per_step=MIXER_EXPLAIN_PER_STEP,
+        resume_step=MIXER_EXPLAIN_RESUME_STEP)
+    say(f"  --resume from the state of a run stopped right after its "
+        f"--ckpt_every_steps {MIXER_EXPLAIN_RESUME_STEP} checkpoint")
+    t0 = time.perf_counter()
+    explain_resume(ds_dir, ckpt, os.path.join(work, "mixer_explain_resume"),
+                   x_snap, base_type="graphmixer", data=MIXER_DATA,
+                   resume_step=MIXER_EXPLAIN_RESUME_STEP)
+    say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+    say("  --eval_only on the saved GraphMixer explainer")
+    explain_eval_only(ds_dir, ckpt, os.path.join(work, "mixer_explain_eval"),
+                      x_results, base_type="graphmixer", data=MIXER_DATA)
+    say(f"  one explainer train step (batch {EXPLAIN_BATCH}, dropout "
+        f"{DROPOUT}, injected draws) and one eval step's sweep on the card "
+        f"against the CPU at float32, the tolerances of "
+        f"[explain-reference] but the logits' atol 2e-4")
+    # atol 2e-4 on the logits (the TGN's 1e-5): an anchor with a single
+    # history event gets n identical tokens, whose token LayerNorm divides
+    # the round-off of their mean by sqrt(1e-5), about 316 times; so the
+    # card's and the CPU's orders of summation (and 1e-7 of difference in
+    # the explain weights) move such a row's logit by up to 4.2e-5 (the
+    # first card run), where other rows move by 1e-6
+    check_explainer_against_cpu(dsm, ckpt, dev, base_type="graphmixer",
+                                data=MIXER_DATA, logit_atol=2e-4)
+    say(f"[trace-mixer] torch.profiler over 20 GraphMixer train steps at "
+        f"batch {MIXER_BATCH}, then 20 explainer train steps on it at batch "
+        f"{EXPLAIN_BATCH} (not counted above)")
+    profile_mixer_training(dsm, out, dev)
+    profile_explainer(dsm, ckpt, dev, base_type="graphmixer",
+                      data=MIXER_DATA)
+    return launches, x_launches, numbers, x_numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tempme_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -2097,13 +2466,6 @@ def main():
         t0 = time.perf_counter()
         tgat_resume(ds_dir, os.path.join(work, "tgat_resume"), tgat_snap)
         say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
-        say("[eval-only] learn_base --eval_only on the TGAT of [tgat-train] "
-            "and the TGN of [train]")
-        eval_only(tgat_argv(ds_dir, tgat_out), os.path.join(
-            tgat_out, "results", f"base_tgat_{TGAT_DATA}.json"), "TGAT")
-        eval_only(train_argv(ds_dir, os.path.join(work, "train")),
-                  os.path.join(work, "train", "results",
-                               f"base_tgn_{DATA_NAME}.json"), "TGN")
         say(f"[tgat-reference] one TGAT train step (batch {TGAT_REF_BATCH}, "
             f"width 172, d_k 258, dropout {DROPOUT}) on the card against "
             f"the CPU from the trained checkpoint at float32 (loss rtol "
@@ -2140,14 +2502,19 @@ def main():
         say(f"[trace-tgat] torch.profiler over 20 TGAT train steps at batch "
             f"{TGAT_BATCH} (not counted above)")
         profile_tgat_training(ds30, tgat_out, dev)
+        mixer_launches, mx_launches, mixer_numbers, mx_numbers = \
+            graphmixer_phases(work, ds_dir, ds30, dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
     say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
+    say(f"  GraphMixer training cell: {json.dumps(mixer_numbers)}")
+    say(f"  GraphMixer explainer cell: {json.dumps(mx_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
-               "tgat-explain": tx_launches}
+               "tgat-explain": tx_launches, "mixer-train": mixer_launches,
+               "mixer-explain": mx_launches}
     tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
                 "attend": "attend tgat m=12800 dk=258 bfloat16",
                 "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",

@@ -8,7 +8,8 @@ batch size is resolved in one place, ``resolve_bs``, which
 is refused, and a driver that trains a 3-layer TGAT resolves it first with
 the deep-TGAT batch of 32 (``learn_base.main``). ``n_layers`` is per base:
 the TGN runs 2 layers whatever ``--n_layer`` says, TGAT ``--n_layer``
-(3 by default).
+(3 by default), GraphMixer ``--n_layer`` mixer blocks (3 by default) over
+2-hop supports of which it reads hop 0.
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ class ModelConfig:
     n_layers: int = 2
     n_heads: int = 2
     dropout: float = 0.1
+    token_expansion: float = 0.5          # GraphMixer's token FFN width / n
+    channel_expansion: float = 4.0        # and channel FFN width / channels
     message_dim: int = 100
     memory_updater: str = "gru"
     aggregator: str = "last"

@@ -1,4 +1,4 @@
-"""The TempME explainer for a TGN base.
+"""The TempME explainer for a TGN or a GraphMixer base.
 
 Port of ``tempme_tpu/explain/tempme.py`` (``TempME`` and its parts): a
 GINE-style event conv over the 3 events of each motif walk, the temporal
@@ -7,9 +7,12 @@ walk an importance in (0, 1); ``edge_importance`` carries it onto the
 support edges (the walk -> edge scatter-max, ``ops/segment.py``) under the
 dependency gate and samples it by a Beta reparameterisation in training
 (its mean in eval); ``kl_sparsity_loss`` holds the importances against the
-null model's motif prior. ``walk_embedding`` and ``_affinity`` belong to the
-enhance path; they are here so that every parameter of a JAX checkpoint has
-a home (``utils/convert.py``), and the enhance driver is not ported.
+null model's motif prior. A TGN's explanation covers hops 0 and 1; a
+GraphMixer reads hop 0 only, so its explainer carries the importances onto
+hop 0 alone (the JAX package computes hop 1 too and drops it).
+``walk_embedding`` and ``_affinity`` belong to the enhance path; they are
+here so that every parameter of a JAX checkpoint has a home
+(``utils/convert.py``), and the enhance driver is not ported.
 
 Every parameter exists from construction on (flax creates them in
 ``init_all`` by running each path once). Layers start from the JAX
@@ -206,14 +209,13 @@ class TempME(nn.Module):
         if base_type == "tgat":
             raise ValueError("a TGAT base's explainer is TempMETGAT "
                              "(explain/tempme_tgat.py)")
-        if base_type != "tgn":
-            raise NotImplementedError(
-                f"the explainer of a {base_type} base is not ported yet "
-                "(ROADMAP item A11)")
+        if base_type not in ("tgn", "graphmixer"):
+            raise ValueError(f"unknown base_type {base_type}")
         dev = resolve_device(device)
         self.node_dim, self.edge_dim = node_dim, edge_dim
         self.out_dim, self.hid_dim = out_dim, hid_dim
         self.base_type, self.prior, self.if_cat = base_type, prior, if_cat
+        self.hops = (0, 1) if base_type == "tgn" else (0,)
         self.dropout = dropout
         self.use_dependency_sampling = use_dependency_sampling
         time_dim = node_dim
@@ -279,10 +281,11 @@ class TempME(nn.Module):
     def edge_importance(self, feats: Features, sub: Subgraph, graphlet_imp,
                         walks: WalkInputs, training: bool = True,
                         draws: Optional[EdgeDraws] = None, gamma=None):
-        """Walk importance -> the importance of each hop-0 and hop-1 support
-        edge: (imp0 [B, n], imp1 [B, n * n]), 0 on padding. ``gamma``: the
-        Beta sample's draws (ga0, gb0, ga1, gb1) or a generator (training
-        only)."""
+        """Walk importance -> the importance of each support edge of the
+        explained hops (``self.hops``): (imp0 [B, n], imp1 [B, n * n]) for a
+        TGN, (imp0,) for a GraphMixer, 0 on padding. ``gamma``: the Beta
+        sample's draws (ga0, gb0, ga1, gb1; a GraphMixer reads the first
+        two) or a generator (training only)."""
         b, w, _ = walks.eids.shape
         edge_walk = walks.eids.reshape(b, w * 3)
         walk_imp = graphlet_imp.expand(b, w, 3).reshape(b, w * 3)
@@ -299,7 +302,7 @@ class TempME(nn.Module):
             gate = torch.sigmoid(self.dep_d3(x).squeeze(-1))
             walk_imp = walk_imp * (0.5 + 0.5 * gate)
         imps = []
-        for hop in (0, 1):
+        for hop in self.hops:
             imp = walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
             g = gamma if isinstance(gamma, torch.Generator) or gamma is None \
                 else gamma[2 * hop:2 * hop + 2]
@@ -309,15 +312,16 @@ class TempME(nn.Module):
 
     def retrieve_explanation(self, feats: Features, subs, imps, walks,
                              training: bool = True, draws=None, gamma=None):
-        """Per hop the stacked [3B, width] edge importances of the three
-        sides (src, tgt, bgd). ``draws`` and ``gamma``: per side, or
+        """Per explained hop the stacked [3B, width] edge importances of the
+        three sides (src, tgt, bgd). ``draws`` and ``gamma``: per side, or
         None; ``gamma`` may also be one generator for all sides."""
         per_side = [self.edge_importance(
             feats, subs[i], imps[i], walks[i], training,
             None if draws is None else draws[i],
             gamma if gamma is None or isinstance(gamma, torch.Generator)
             else gamma[i]) for i in range(3)]
-        return [torch.cat([s[h] for s in per_side], dim=0) for h in (0, 1)]
+        return [torch.cat([s[h] for s in per_side], dim=0)
+                for h in range(len(self.hops))]
 
     # -- enhance path (parameters only; its driver is not ported) -------
     def walk_embedding(self, feats: Features, walks: WalkInputs, cut_time,

@@ -108,6 +108,9 @@ class TGATAttnLayer(nn.Module):
 
 
 class TGAT(nn.Module):
+    embed_calls = 4            # contrast embeds src twice, tgt and bgd once
+    draws_type = AttnDraws
+
     def __init__(self, node_dim: int, edge_dim: int, num_layers: int = 3,
                  n_head: int = 2, dropout: float = 0.1,
                  agg_method: str = "attn", attn_mode: str = "prod",

@@ -1,5 +1,6 @@
 """Time encoding ``cos(t * w + b)`` (port of ``tempme_tpu/ops/encodings.py``
-``TimeEncode``, the trainable form TGN uses)."""
+``TimeEncode``): the trainable form TGN and TGAT use, and GraphMixer's
+frozen one."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,13 +10,22 @@ from torch import nn
 
 class TimeEncode(nn.Module):
     """Input [..., L] -> output [..., L, dim]. ``freq`` starts at
-    1/10**linspace(0, 9, dim), ``phase`` at 0, as in the JAX package."""
+    1/10**linspace(0, 9, dim), ``phase`` at 0, as in the JAX package. With
+    ``trainable=False`` (GraphMixer) both are fixed buffers outside the
+    ``state_dict``: no gradient, no optimizer state, no checkpoint entry,
+    as the JAX tree has none."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, trainable: bool = True):
         super().__init__()
-        freq = (1.0 / 10 ** np.linspace(0, 9, dim)).astype(np.float32)
-        self.freq = nn.Parameter(torch.from_numpy(freq))
-        self.phase = nn.Parameter(torch.zeros(dim))
+        freq = torch.from_numpy(
+            (1.0 / 10 ** np.linspace(0, 9, dim)).astype(np.float32))
+        phase = torch.zeros(dim)
+        if trainable:
+            self.freq = nn.Parameter(freq)
+            self.phase = nn.Parameter(phase)
+        else:
+            self.register_buffer("freq", freq, persistent=False)
+            self.register_buffer("phase", phase, persistent=False)
 
     def forward(self, ts: torch.Tensor) -> torch.Tensor:
         return torch.cos(ts[..., None] * self.freq + self.phase)

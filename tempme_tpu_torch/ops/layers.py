@@ -1,7 +1,8 @@
-"""Merge heads and the JAX package's initialisers.
+"""Merge heads, GraphMixer's feed-forward and mixer block, and the JAX
+package's initialisers.
 
-Port of ``tempme_tpu/ops/layers.py`` ``ConcatMerge`` and ``GatedMerge``.
-Layers start from the
+Port of ``tempme_tpu/ops/layers.py`` (``ConcatMerge``, ``GatedMerge``,
+``FeedForward``, ``MixerBlock``). Layers start from the
 distributions flax gives them (``tempme_tpu/ops/layers.py``,
 ``ops/attention.py``, flax ``Dense`` and ``GRUCell`` defaults), not from
 ``torch.nn``'s: ``Dense`` kernels are ``lecun_normal`` (a normal truncated
@@ -11,6 +12,7 @@ merge layers and attention ``fc`` are ``xavier_normal`` with zero biases.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -68,3 +70,71 @@ class GatedMerge(nn.Module):
         if explain_weight is not None:
             x21 = x21 * explain_weight[..., None]
         return x22 + x21
+
+
+class MixerDraws(NamedTuple):
+    """Uniforms in [0, 1) for one ``MixerBlock``'s four dropout sites: a
+    site keeps where ``u >= rate`` and scales by ``1 / (1 - rate)``."""
+    token_hidden: torch.Tensor     # [B, C, int(token_expansion * n)]
+    token_out: torch.Tensor        # [B, C, n]
+    channel_hidden: torch.Tensor   # [B, n, int(channel_expansion * C)]
+    channel_out: torch.Tensor      # [B, n, C]
+
+
+def _dropout(x, u, rate: float):
+    if u is None or rate <= 0.0:
+        return x
+    return torch.where(u >= rate, x / (1.0 - rate), 0.0)
+
+
+class FeedForward(nn.Module):
+    """Dense -> exact GELU -> dropout -> Dense -> dropout over the last axis
+    of width ``dim``, the hidden width ``int(expansion * dim)``."""
+
+    def __init__(self, dim: int, expansion: float, dropout: float = 0.0):
+        super().__init__()
+        self.hidden = int(expansion * dim)
+        self.dropout = dropout
+        self.fc1 = dense(dim, self.hidden)
+        self.fc2 = dense(self.hidden, dim)
+
+    def forward(self, x, u_hidden=None, u_out=None):
+        h = nn.functional.gelu(self.fc1(x), approximate="none")
+        h = self.fc2(_dropout(h, u_hidden, self.dropout))
+        return _dropout(h, u_out, self.dropout)
+
+
+class MixerBlock(nn.Module):
+    """MLP-mixer block over x [B, tokens, channels]: the token mix (a
+    LayerNorm and the token FFN across the tokens of each channel), a
+    residual, the channel mix (a LayerNorm and the channel FFN), a residual.
+    ``explain_weights`` [B, tokens] gate the input, the token mix's output
+    and the channel mix's output; ``draws`` (a ``MixerDraws``, training) or
+    None (eval)."""
+
+    def __init__(self, num_tokens: int, num_channels: int,
+                 token_expansion: float = 0.5, channel_expansion: float = 4.0,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.token_norm = nn.LayerNorm(num_tokens, eps=1e-5)
+        self.token_ffn = FeedForward(num_tokens, token_expansion, dropout)
+        self.channel_norm = nn.LayerNorm(num_channels, eps=1e-5)
+        self.channel_ffn = FeedForward(num_channels, channel_expansion,
+                                       dropout)
+
+    def forward(self, x, explain_weights: Optional[torch.Tensor] = None,
+                draws: Optional[MixerDraws] = None):
+        ew = None if explain_weights is None else explain_weights[..., None]
+        if ew is not None:
+            x = x * ew
+        d = draws or MixerDraws(None, None, None, None)
+        h = self.token_ffn(self.token_norm(x.transpose(1, 2)),
+                           d.token_hidden, d.token_out).transpose(1, 2)
+        if ew is not None:
+            h = h * ew
+        x = h + x
+        h = self.channel_ffn(self.channel_norm(x), d.channel_hidden,
+                             d.channel_out)
+        if ew is not None:
+            h = h * ew
+        return h + x

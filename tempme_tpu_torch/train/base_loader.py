@@ -1,12 +1,13 @@
 """Rebuild a trained base model (module, weights and TGN memory) from the
 checkpoint its driver wrote.
 
-Port of ``tempme_tpu/train/base_loader.py:26-77``, TGN and TGAT
-branches: the JSON meta names the architecture, the ``.pt`` blob that
-``learn_base.main`` writes holds the parameters (and the TGN's train-side
-memory). A TGAT of 3 or more layers checkpoints its blocks (``remat``), as
-the JAX loader builds it. GraphMixer bases are not ported yet and raise,
-naming their ROADMAP item.
+Port of ``tempme_tpu/train/base_loader.py:26-77``: the JSON meta names
+the architecture, the ``.pt`` blob that ``learn_base.main`` writes holds
+the parameters (and the TGN's train-side memory). A TGAT of 3 or more
+layers checkpoints its blocks (``remat``), as the JAX loader builds it. A
+GraphMixer gets ``meta["n_layer"]`` mixer blocks and ``meta["n_degree"]``
+tokens. Every load is strict: a checkpoint whose blocks differ from its
+meta raises (flax's reader drops the parameters its template lacks).
 """
 from __future__ import annotations
 
@@ -14,12 +15,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..models.graphmixer import GraphMixer
 from ..models.tgat import TGAT
 from ..models.tgn import TGN, TGNMemoryState
 from ..utils.checkpoint import load_checkpoint
 from ..utils.devices import resolve_device
-
-_NOT_PORTED = {"graphmixer": "A11"}
 
 
 class LoadedBase(NamedTuple):
@@ -33,15 +33,18 @@ def load_base(ckpt_path: str, device=None,
               compute_dtype: torch.dtype = torch.bfloat16) -> LoadedBase:
     """The base of ``ckpt_path`` on ``device`` (CUDA unless
     ``device="cpu"``), frozen (no parameter requires a gradient) and in
-    eval form. ``compute_dtype`` is the attention projections' type, bf16
-    as in the JAX package."""
+    eval form. ``compute_dtype`` is the attention projections' type of a
+    TGN or a TGAT, bf16 as in the JAX package (a GraphMixer is float32)."""
     dev = resolve_device(device)
     blob, meta = load_checkpoint(ckpt_path, map_location="cpu")
     base_type = meta["base_type"]
-    if base_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"loading a {base_type} base is not ported yet (ROADMAP item "
-            f"{_NOT_PORTED[base_type]})")
+    if base_type == "graphmixer":
+        model = GraphMixer(node_dim=meta["node_dim"],
+                           edge_dim=meta["edge_dim"],
+                           num_tokens=meta["n_degree"],
+                           num_layers=meta["n_layer"],
+                           dropout=meta["drop_out"], device=dev)
+        return _frozen(base_type, model, blob, meta)
     if base_type == "tgat":
         model = TGAT(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
                      num_layers=meta["n_layer"], n_head=meta["n_head"],
@@ -51,10 +54,7 @@ def load_base(ckpt_path: str, device=None,
                      use_time=meta.get("use_time", "time"),
                      remat=meta["n_layer"] >= 3, device=dev,
                      compute_dtype=compute_dtype)
-        model.load_state_dict(blob["params"])
-        model.requires_grad_(False)
-        model.eval()
-        return LoadedBase(base_type, model, None, meta)
+        return _frozen(base_type, model, blob, meta)
     if base_type != "tgn":
         raise ValueError(f"unknown base_type {base_type}")
     model = TGN(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
@@ -66,9 +66,13 @@ def load_base(ckpt_path: str, device=None,
                 embedding_type=meta.get("embedding_module",
                                         "graph_attention"),
                 device=dev, compute_dtype=compute_dtype)
-    model.load_state_dict(blob["params"])
-    model.requires_grad_(False)
-    model.eval()
     memory = TGNMemoryState(**{k: v.to(dev)
                                for k, v in blob["memory"].items()})
+    return _frozen(base_type, model, blob, meta, memory)
+
+
+def _frozen(base_type, model, blob, meta, memory=None) -> LoadedBase:
+    model.load_state_dict(blob["params"], strict=True)
+    model.requires_grad_(False)
+    model.eval()
     return LoadedBase(base_type, model, memory, meta)

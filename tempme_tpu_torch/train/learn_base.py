@@ -1,4 +1,4 @@
-"""Base-model training and evaluation driver: TGN and TGAT.
+"""Base-model training and evaluation driver: TGN, TGAT and GraphMixer.
 
 Usage:
     python -m tempme_tpu_torch.train.learn_base --data wikipedia \
@@ -8,16 +8,17 @@ Usage:
 Port of ``tempme_tpu/train/learn_base.py``: the flags, the one resolved
 Config (a 3-layer TGAT trains at batch 32 unless ``--bs`` is given), the
 dispatch of a TGN to its driver (``learn_tgn.main``), the stateless-base
-driver (TGAT: the epoch loop, val and test with a fresh support sampler,
-the best checkpoint by val AP, a train-state checkpoint each epoch and
-every ``--ckpt_every_steps`` steps, ``--resume``, early stopping, the
-results JSON) and ``--eval_only``, which scores a saved base on the test
-split and writes the same results file. A TGN's ``--eval_only`` carries
-the saved train-side memory through val before test, in time order, as the
-training driver scores test; so it reproduces the test AP the training run
-wrote (the JAX package starts test from the train-side memory).
-GraphMixer is not ported yet and raises, naming ROADMAP item A11. Runs on
-the CUDA device unless the caller passes ``device="cpu"`` to ``main``.
+driver (TGAT and GraphMixer: the epoch loop, val and test with a fresh
+support sampler, the best checkpoint by val AP, a train-state checkpoint
+each epoch and every ``--ckpt_every_steps`` steps, ``--resume``, early
+stopping, the results JSON) and ``--eval_only``, which scores a saved base
+on the test split and writes the same results file. As in the JAX package,
+a TGN's ``--eval_only`` scores test straight from the checkpoint's
+train-side memory, while its training run scores test after val has
+advanced the memory; so the two test numbers differ. A GraphMixer trains
+``--n_layer`` mixer blocks over 2-hop supports whose hop 0 it reads, and
+its checkpoint meta's ``n_layer`` is that block count. Runs on the CUDA
+device unless the caller passes ``device="cpu"`` to ``main``.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from ..utils.devices import resolve_device
 from ..utils.logging import MetricsLogger
 from . import loops
 
-_NOT_PORTED = {"graphmixer": "A11"}
+BASES = ("tgn", "tgat", "graphmixer")
 
 
 def write_results(results_dir: str, name: str, payload: dict) -> str:
@@ -96,7 +97,9 @@ def _graphs_and_feats(cfg, dev):
 def eval_checkpoint(args, cfg, device=None) -> dict:
     """Score the saved base ``{out_dir}/{base_type}_{data}.pt`` on the test
     split at ``--bs`` (AP, AUC, accuracy; the same support draws as the
-    training run's test) and write ``base_{base_type}_{data}.json``."""
+    training run's test; a TGN from the checkpoint's memory, with no val
+    pass first, as the JAX package's ``eval_checkpoint``) and write
+    ``base_{base_type}_{data}.json``."""
     from .base_loader import load_base
     dev = resolve_device(device)
     ds, _, g_full, feats, dst = _graphs_and_feats(cfg, dev)
@@ -107,11 +110,11 @@ def eval_checkpoint(args, cfg, device=None) -> dict:
     if base.base_type == "tgn":
         from .learn_tgn import evaluate_tgn, make_tgn_eval_step
         eval_step = make_tgn_eval_step(base.model, g_full, feats, dst, n)
-        _, mem = evaluate_tgn(eval_step, base.memory, ds.val, bs)
-        test, _ = evaluate_tgn(eval_step, mem, ds.test, bs)
+        test, _ = evaluate_tgn(eval_step, base.memory, ds.test, bs)
     else:
         eval_step = loops.make_base_eval_step(
-            base.model, g_full, feats, dst, int(base.meta["n_layer"]), n)
+            base.model, g_full, feats, dst,
+            support_hops(base.base_type, int(base.meta["n_layer"])), n)
         test = evaluate(eval_step, ds.test, bs)
     print(f"[eval {args.base_type}/{cfg.data.name}] ap={test['ap']:.4f} "
           f"auc={test['auc']:.4f} acc={test['acc']:.4f}")
@@ -120,25 +123,45 @@ def eval_checkpoint(args, cfg, device=None) -> dict:
     return test
 
 
-def _stateless_main(args, cfg, device=None):
-    """The TGAT training driver. Returns the best checkpoint's test AP."""
+def support_hops(base_type: str, n_layer: int) -> int:
+    """The depth of a stateless base's supports: a TGAT's ``n_layer``; a
+    GraphMixer samples 2 hops, as the JAX package does, and reads hop 0."""
+    return n_layer if base_type == "tgat" else 2
+
+
+def build_model(mc, node_dim: int, edge_dim: int, device, seed: int):
+    """The stateless base of ``mc`` (TGAT or GraphMixer)."""
+    if mc.base_type == "graphmixer":
+        from ..models.graphmixer import GraphMixer
+        return GraphMixer(node_dim=node_dim, edge_dim=edge_dim,
+                          num_tokens=mc.n_degree, num_layers=mc.n_layers,
+                          token_expansion=mc.token_expansion,
+                          channel_expansion=mc.channel_expansion,
+                          dropout=mc.dropout, device=device, seed=seed)
     from ..models.tgat import TGAT
-    dev = resolve_device(device)
-    mc, bs, k = cfg.model, cfg.train.batch_size, cfg.model.n_layers
-    ds, g_train, g_full, feats, dst_test = _graphs_and_feats(cfg, dev)
     # 3-layer supports (n + n**2 + n**3 events a side) train within one
     # card's memory with each block recomputed in the backward
-    model = TGAT(node_dim=ds.node_feat.shape[1],
-                 edge_dim=ds.edge_feat.shape[1], num_layers=k,
-                 n_head=mc.n_heads, dropout=mc.dropout,
-                 agg_method=mc.agg_method, attn_mode=mc.attn_mode,
-                 use_time=mc.use_time, remat=k >= 3, device=dev,
-                 seed=cfg.train.seed)
+    return TGAT(node_dim=node_dim, edge_dim=edge_dim,
+                num_layers=mc.n_layers, n_head=mc.n_heads,
+                dropout=mc.dropout, agg_method=mc.agg_method,
+                attn_mode=mc.attn_mode, use_time=mc.use_time,
+                remat=mc.n_layers >= 3, device=device, seed=seed)
+
+
+def _stateless_main(args, cfg, device=None):
+    """The TGAT and GraphMixer training driver. Returns the best
+    checkpoint's test AP."""
+    dev = resolve_device(device)
+    mc, bs = cfg.model, cfg.train.batch_size
+    k = support_hops(mc.base_type, mc.n_layers)
+    ds, g_train, g_full, feats, dst_test = _graphs_and_feats(cfg, dev)
+    model = build_model(mc, ds.node_feat.shape[1], ds.edge_feat.shape[1],
+                        dev, cfg.train.seed)
     train_sampler = RandEdgeSampler([ds.train.src], [ds.train.dst])
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model={args.base_type} data={cfg.data.name} "
-          f"params={n_params:,} n_degree={mc.n_degree} layers={k} bs={bs} "
-          f"device={dev}")
+          f"params={n_params:,} n_degree={mc.n_degree} "
+          f"layers={mc.n_layers} bs={bs} device={dev}")
 
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.train.lr)
     generator = torch.Generator(device=dev)
@@ -216,16 +239,19 @@ def _stateless_main(args, cfg, device=None):
         logger.flush()
         if best is None or val["ap"] > best.get("val_ap", float("-inf")):
             best = dict(test, val_ap=val["ap"])
-            save_checkpoint(
-                ckpt_path, {"params": model.state_dict()},
-                meta=dict(base_type=args.base_type, data=cfg.data.name,
-                          n_degree=mc.n_degree, n_layer=k,
-                          n_head=mc.n_heads, drop_out=mc.dropout,
-                          node_dim=ds.node_feat.shape[1],
-                          edge_dim=ds.edge_feat.shape[1],
-                          agg_method=mc.agg_method, attn_mode=mc.attn_mode,
-                          use_time=mc.use_time,
-                          pos_seq_len=max(64, mc.n_degree)))
+            # n_layer: a TGAT's layers, a GraphMixer's mixer blocks (what
+            # both packages' loaders build)
+            meta = dict(base_type=args.base_type, data=cfg.data.name,
+                        n_degree=mc.n_degree, n_layer=mc.n_layers,
+                        n_head=mc.n_heads, drop_out=mc.dropout,
+                        node_dim=ds.node_feat.shape[1],
+                        edge_dim=ds.edge_feat.shape[1])
+            if args.base_type == "tgat":
+                meta.update(agg_method=mc.agg_method,
+                            attn_mode=mc.attn_mode, use_time=mc.use_time,
+                            pos_seq_len=max(64, mc.n_degree))
+            save_checkpoint(ckpt_path, {"params": model.state_dict()},
+                            meta=meta)
             print(f"  saved best checkpoint -> {ckpt_path} "
                   f"(val_ap={best['val_ap']:.4f} test_ap={best['ap']:.4f})")
         stop = stopper.early_stop_check(val["ap"])
@@ -259,11 +285,7 @@ def main(argv=None, device=None):
     resolve_bs(args, deep_tgat_bs=32)
     cfg = config_from_args(args)
     args.n_degree = cfg.model.n_degree
-    if args.base_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"base_type {args.base_type} is not ported yet (ROADMAP item "
-            f"{_NOT_PORTED[args.base_type]})")
-    if args.base_type not in ("tgn", "tgat"):
+    if args.base_type not in BASES:
         raise ValueError(f"unknown base_type {args.base_type}")
     if args.eval_only:
         return eval_checkpoint(args, cfg, device=device)

@@ -3,11 +3,11 @@ the loss.
 
 Port of ``tempme_tpu/train/loops.py:22-161,213-238``, with the
 stateless bases' train and eval steps (``make_base_train_step``,
-``make_base_eval_step``: TGAT; the draws are injected as in the TGN
-step). Random draws
-are tensors (``SupportDraws``, ``AttnDraws``): ``draw_support`` and
-``draw_dropout`` make them from a ``torch.Generator``, and a test can build
-them from ``jax.random`` in the JAX package's split order instead.
+``make_base_eval_step``: TGAT and GraphMixer; the draws are injected as in
+the TGN step). Random draws are tensors (``SupportDraws``, ``AttnDraws``,
+``MixerDraws``): ``draw_support`` and ``draw_dropout`` make them from a
+``torch.Generator``, and a test can build them from ``jax.random`` in the
+JAX package's split order instead.
 """
 from __future__ import annotations
 
@@ -50,12 +50,15 @@ def draw_support(generator: torch.Generator, batch_size: int, k: int, n: int,
     return SupportDraws(neg, hops(), hops(), hops())
 
 
-def draw_dropout(generator: torch.Generator, shapes, device):
-    """One side's dropout draws: an ``AttnDraws`` per ``(attn shape, fc
-    shape)`` pair of ``TGN.dropout_shapes``, drawn in that order."""
-    return tuple(AttnDraws(torch.rand(a, generator=generator, device=device),
-                           torch.rand(f, generator=generator, device=device))
-                 for a, f in shapes)
+def draw_dropout(generator: torch.Generator, shapes, device,
+                 draws_type=AttnDraws):
+    """One embedding call's dropout draws: per entry of the model's
+    ``dropout_shapes`` (an ``(attn shape, fc shape)`` pair of the TGN or
+    the TGAT, a ``MixerDraws`` of shapes of GraphMixer) one ``draws_type``
+    of uniforms, drawn in that order."""
+    return tuple(draws_type(*(torch.rand(s, generator=generator,
+                                         device=device) for s in shapes_i))
+                 for shapes_i in shapes)
 
 
 class StepDraws(NamedTuple):
@@ -126,7 +129,8 @@ def sample_support(g, batch: Batch, dst_table: torch.Tensor, k: int, n: int,
 
 
 class BaseTrainStep:
-    """The stateless bases' train step (TGAT): ``step(batch, draws) ->
+    """The stateless bases' train step (TGAT, GraphMixer): ``step(batch,
+    draws) ->
     {"loss", "pos", "neg"}``, one step of ``optimizer`` on the BCE of the
     positive and negative logits over the three ``k``-hop supports (cut at
     the batch time, as the JAX step's ``use_eidx=False``). The gradients
@@ -141,16 +145,17 @@ class BaseTrainStep:
     def draw(self, generator: torch.Generator, batch_size: int) -> StepDraws:
         """The step's draws from ``generator`` in a fixed order: the support
         (negatives, then per side the hops), then, when the model has
-        dropout, per embedding call (src, tgt, src, bgd) and per block the
-        probabilities' and fc's uniforms."""
+        dropout, per embedding call (a TGAT's src, tgt, src, bgd; a
+        GraphMixer's src, tgt, bgd) and per block its sites' uniforms."""
         dev = self.g.device
         support = draw_support(generator, batch_size, self.k, self.n,
                                self.dst_table.shape[0], dev)
         dropout = None
         if self.model.dropout > 0.0:
             shapes = self.model.dropout_shapes(batch_size, self.n)
-            dropout = tuple(draw_dropout(generator, shapes, dev)
-                            for _ in range(4))
+            dropout = tuple(draw_dropout(generator, shapes, dev,
+                                         self.model.draws_type)
+                            for _ in range(self.model.embed_calls))
         return StepDraws(support, dropout)
 
     def __call__(self, batch: Batch, draws: StepDraws):

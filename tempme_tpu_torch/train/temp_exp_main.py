@@ -1,24 +1,27 @@
-"""TempME explainer training and evaluation on a frozen TGN or TGAT.
+"""TempME explainer training and evaluation on a frozen TGN, TGAT or
+GraphMixer.
 
 Usage:
     python -m tempme_tpu_torch.train.temp_exp_main --data wikipedia \
         --data_dir processed --base_type tgn --n_epoch 10 --bs 100
 
-Port of ``tempme_tpu/train/temp_exp_main.py`` for TGN and TGAT bases. Per
-train step: the negatives, the three supports (``sample_rows``; as many
-hops as the base has layers, 3 for the default TGAT) and the three sides'
-motif walks (``sample_union``, ``sample_masked``) are sampled on the card;
-the frozen base labels the batch (``attend``); the explainer (``TempME``,
-or ``TempMETGAT``, which also reads the anchor pair) scores the walks,
-carries the scores onto the hop-0 and hop-1 support edges
-(``walk_to_edge``) and samples them by the Beta reparameterisation; the
-base runs again with those weights on its attention probabilities (a
-3-layer TGAT's hop 2 unweighted), and Adam (or AdamW) steps the explainer
+Port of ``tempme_tpu/train/temp_exp_main.py``. Per train step: the
+negatives, the three supports (``sample_rows``; as many hops as a TGAT has
+layers, 2 for a TGN or a GraphMixer) and the three sides' motif walks
+(``sample_union``, ``sample_masked``) are sampled on the card; the frozen
+base labels the batch; the explainer (``TempME``, or ``TempMETGAT``, which
+also reads the anchor pair) scores the walks, carries the scores onto the
+support edges of the hops the base reads (hops 0 and 1; a GraphMixer's hop
+0) (``walk_to_edge``) and samples them by the Beta reparameterisation; the
+base runs again with those weights (on a TGN's or a TGAT's attention
+probabilities, a 3-layer TGAT's hop 2 unweighted; at a GraphMixer's mixer
+blocks, tokens and node scores), and Adam (or AdamW) steps the explainer
 on BCE(pred, y_ori) + beta * KL(motif prior), the gradient reaching the
-weights through ``attend_bwd`` and ``walk_to_edge``'s backward. The eval
-step adds fidelity (prob and logit) and the 16-ratio sweep through the
-base's ``ratio_contrast`` (a 3-layer TGAT's in chunks of 4 ratios, which
-bounds its [R * B, n**2, D] levels).
+weights through the base's backward (``attend_bwd`` for a TGN or a TGAT)
+and ``walk_to_edge``'s backward. The eval step adds fidelity (prob and
+logit) and the 16-ratio sweep through the base's ``ratio_contrast`` (a
+3-layer TGAT's in chunks of 4 ratios, which bounds its [R * B, n**2, D]
+levels; a GraphMixer's top-k over its n hop-0 edges alone).
 
 The driver reads the base checkpoint that ``learn_base`` wrote
 (``{ckpt_dir}/tgnn/{base_type}_{data}.pt``), keeps the best explainer on val
@@ -80,7 +83,14 @@ def make_base_contrast(base: LoadedBase):
     neg)`` logits [B, 1] of the frozen base, a TGN's memory left as it
     was; ``explain`` is None or per hop the stacked [3B, width] weights of
     the three sides (src, tgt, bgd). A TGAT takes them as its pair of
-    pairs, hops deeper than the explanation's unweighted."""
+    pairs, hops deeper than the explanation's unweighted; a GraphMixer its
+    one hop split over the three sides."""
+    if base.base_type == "graphmixer":
+        def contrast_mixer(feats, src, tgt, bgd, ts, eidx, subs, explain):
+            ew = None if explain is None else explain[0].chunk(3, dim=0)
+            return base.model.contrast(feats, src, tgt, bgd, ts, *subs,
+                                       explain_weights=ew)
+        return contrast_mixer
     if base.base_type == "tgat":
         def contrast_tgat(feats, src, tgt, bgd, ts, eidx, subs, explain):
             ew = None
@@ -94,8 +104,7 @@ def make_base_contrast(base: LoadedBase):
                                        explain_weights=ew)
         return contrast_tgat
     if base.base_type != "tgn":
-        raise NotImplementedError(f"{base.base_type} bases are not ported "
-                                  "yet (ROADMAP item A11)")
+        raise ValueError(f"unknown base_type {base.base_type}")
 
     def contrast(feats, src, tgt, bgd, ts, eidx, subs, explain):
         ew = None
@@ -134,13 +143,16 @@ def ratio_topk_keep(imp, ratios, num_edge: int):
     return rank[None] < topks[:, None, None]
 
 
-def keep_masks_for_ratios(explanation, ratios, n_degree: int):
+def keep_masks_for_ratios(explanation, ratios, n_degree: int,
+                          use_hops: int = 2):
     """Per side the per-hop [R, B, width] keep masks of the ratio sweep, the
-    top-k taken over both hops' edges together."""
-    widths = (n_degree, n_degree * n_degree)
+    top-k taken over the first ``use_hops`` hops' edges together (2 for a
+    TGN or a TGAT, 1 for a GraphMixer: its n hop-0 edges)."""
+    widths = (n_degree, n_degree * n_degree)[:use_hops]
 
     def side(i):
-        imp = torch.cat([h.chunk(3, dim=0)[i] for h in explanation], dim=1)
+        imp = torch.cat([h.chunk(3, dim=0)[i]
+                         for h in explanation[:use_hops]], dim=1)
         keep = ratio_topk_keep(imp, ratios, sum(widths))
         return list(keep.split(widths, dim=-1))
     return [side(i) for i in range(3)]
@@ -149,7 +161,8 @@ def keep_masks_for_ratios(explanation, ratios, n_degree: int):
 class _Steps:
     """What the train and eval steps share: the explainer, the frozen base,
     the graph, the features, the negatives' table and the prior. The
-    supports are as deep as the base (a TGAT's layers, a TGN's 2 hops)."""
+    supports are as deep as the base (a TGAT's layers; 2 hops for a TGN or
+    a GraphMixer)."""
 
     def __init__(self, explainer, base: LoadedBase, g, feats, dst_table,
                  n_degree: int, null_dist, prior_p: float):
@@ -270,9 +283,13 @@ class ExplainerEvalStep(_Steps):
     @torch.no_grad()
     def __call__(self, batch: loops.Batch, draws: ExplainerDraws):
         out = self._forward(batch, draws, training=False)
-        keeps = keep_masks_for_ratios(out["explanation"], self.ratios, self.n)
+        keeps = keep_masks_for_ratios(out["explanation"], self.ratios,
+                                      self.n, len(out["explanation"]))
         args = (batch.src, batch.dst, out["bgd"], batch.ts, *out["subs"])
-        if self.is_tgat:
+        if self.base.base_type == "graphmixer":      # hop 0's masks alone
+            pos_r, neg_r = self.base.model.ratio_contrast(
+                self.feats, *args, *(k[0] for k in keeps))
+        elif self.is_tgat:
             # a 3-hop pyramid sweeps 4 ratios at a time (the JAX package's
             # lax.map over chunks), a 2-hop one all at once
             pos_r, neg_r = self.base.model.ratio_contrast(

@@ -1,5 +1,5 @@
-"""Carry flax TGN, TGAT, TempME and TempMETGAT weights across into the
-port's ``state_dict``.
+"""Carry flax TGN, TGAT, GraphMixer, TempME and TempMETGAT weights across
+into the port's ``state_dict``.
 
 The input is a flax parameter tree as nested dicts of numpy arrays (with or
 without the outer ``{"params": ...}``); ``read_flax_msgpack`` reads one
@@ -9,7 +9,8 @@ flax or a msgpack package. The rules:
 * a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight`` ``[out, in]``;
 * ``LayerNorm`` ``scale``/``bias`` become ``weight``/``bias``;
 * ``TimeEncode`` ``freq``/``phase`` carry over as they are;
-* ``attn_{i}`` becomes ``attn_layers.{i}``, ``nn.Sequential``'s
+* ``attn_{i}`` becomes ``attn_layers.{i}``, ``mixer_{i}`` (a GraphMixer's
+  blocks) ``mixers.{i}``, ``nn.Sequential``'s
   ``layers_{j}`` becomes ``{j}``, and flax's auto-named ``Dense_{j}`` (the
   explainer's ``EventGCN`` and motif attention, the TGAT explainer's
   encoder layers) becomes ``fc{j+1}``, ``LayerNorm_{j}`` ``norm{j+1}``;
@@ -21,6 +22,10 @@ flax or a msgpack package. The rules:
 * a TGAT's ``attn_{i}`` holds its eight bias-free projections, ``fc``,
   ``ln`` and the gated ``merger`` (``fc11`` ... ``fc22``), beside
   ``time_encoder`` and ``affinity_score``: the rules above map it whole;
+* a GraphMixer's blocks hold ``token_norm``/``channel_norm`` and the
+  ``token_ffn``/``channel_ffn`` feed-forwards, whose auto-named
+  ``Dense_0``/``Dense_1`` become ``fc1``/``fc2``; its frozen time encoder
+  has no entry on either side;
 * flax's ``GRUCell`` has dense layers ``ir``/``iz``/``in`` with bias and
   ``hr``/``hz`` without (``hn`` has one). The port's ``models/tgn.py``
   ``GRUCell`` has the same parameters, stacked: ``weight_ih = cat(ir, iz,
@@ -55,9 +60,10 @@ def _gru(tree: dict, prefix: str, out: dict) -> None:
 
 
 def _module_name(name: str) -> str:
-    m = re.fullmatch(r"attn_(\d+)", name)
+    m = re.fullmatch(r"(attn|mixer)_(\d+)", name)
     if m:
-        return f"attn_layers.{m.group(1)}"
+        stem = "attn_layers" if m.group(1) == "attn" else "mixers"
+        return f"{stem}.{m.group(2)}"
     m = re.fullmatch(r"(Dense|LayerNorm)_(\d+)", name)
     if m:
         stem = "fc" if m.group(1) == "Dense" else "norm"
@@ -85,8 +91,8 @@ def _walk(tree: dict, prefix: str, out: dict) -> None:
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax parameter tree of a TGN, a TGAT, or a TempME or TempMETGAT
-    explainer (or of one of their submodules) -> the
+    """Flax parameter tree of a TGN, a TGAT, a GraphMixer, or a TempME or
+    TempMETGAT explainer (or of one of their submodules) -> the
     matching port module's ``state_dict`` as CPU float32 tensors (load it
     with ``module.load_state_dict``)."""
     if set(params) == {"params"}:

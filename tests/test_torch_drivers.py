@@ -87,11 +87,11 @@ def test_learn_base_tgn_one_epoch(workdir):
     assert {"ap", "auc", "acc", "val_ap"} <= set(res)
 
 
-@pytest.mark.parametrize("base, item", [("tgat", "A10"),
-                                        ("graphmixer", "A11")])
+@pytest.mark.parametrize("base, item", [("tgat", "A10")])
 def test_unported_bases_name_roadmap_items(workdir, base, item):
-    """GraphMixer is not ported; TGAT runs its default variant only, and
-    the others (here ``--agg_method lstm``) name A10."""
+    """TGAT runs its default variant only, and the others (here
+    ``--agg_method lstm``) name A10; every base is ported (GraphMixer's
+    drivers: ``tests/test_torch_graphmixer_drivers.py``)."""
     argv = _argv(workdir, workdir / "unported", 1)
     argv[argv.index("tgn")] = base
     if base == "tgat":

@@ -8,8 +8,11 @@
 * a run killed right after its first mid-epoch checkpoint and resumed ends
   in the uninterrupted run's train state and best checkpoint, tensor by
   tensor (``torch.equal``; on the CPU the step is deterministic);
-* ``--eval_only`` of a TGN reproduces its training run's test metrics
-  (the saved train-side memory carried through val first);
+* ``--eval_only`` of a TGN scores test from the checkpoint's train-side
+  memory, as the JAX package's ``eval_checkpoint`` does: it equals
+  ``evaluate_tgn`` from the saved memory on the test split, and differs
+  from the test metrics the training run wrote (its memory had run through
+  val first);
 * ``temp_exp_main.main --base_type tgat`` trains the explainer one epoch on
   that TGAT (3-hop supports, the sweep in chunks of 4 ratios), and its
   ``--eval_only`` reproduces the saved explainer's test metrics exactly.
@@ -104,13 +107,33 @@ def test_tgat_mid_epoch_resume_bit_for_bit(workdir, tgat_dir, tmp_path,
 
 def test_tgn_eval_only_reproduces_its_test_metrics(workdir,
                                                    tmp_path):  # noqa: F811
+    """The test metrics of the checkpoint's memory, not those after val."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler, load_dataset
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.train.base_loader import load_base
+    from tempme_tpu_torch.train.learn_tgn import (evaluate_tgn,
+                                                  make_tgn_eval_step)
     argv = _argv(workdir, tmp_path, "--base_type", "tgn", "--bs", "50")
     learn_base.main(argv, device="cpu")
     res = json.loads((tmp_path / "results" / "base_tgn_synth.json")
                      .read_text())
     test = learn_base.main(argv + ["--eval_only"], device="cpu")
+    ds = load_dataset("synth", str(workdir))
+    base = load_base(str(tmp_path / "tgnn" / "tgn_synth.pt"), device="cpu")
+    dst = RandEdgeSampler([ds.train.src, ds.val.src, ds.test.src],
+                          [ds.train.dst, ds.val.dst, ds.test.dst]).dst_list
+    step = make_tgn_eval_step(
+        base.model, build_temporal_graph(ds.full, ds.full.num_nodes,
+                                         ds.full.num_edges, device="cpu"),
+        Features(torch.from_numpy(ds.node_feat),
+                 torch.from_numpy(ds.edge_feat)),
+        torch.from_numpy(dst), N_DEGREE)
+    want, _ = evaluate_tgn(step, base.memory, ds.test, 50)
     for key in ("ap", "auc", "acc"):
-        assert test[key] == res[key], key
+        assert test[key] == want[key], key
+    assert test["ap"] != res["ap"]
 
 
 def test_explainer_on_tgat_and_eval_only(workdir, tgat_dir,
