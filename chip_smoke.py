@@ -253,7 +253,8 @@ def attend_bytes(m, h, n, dk, with_mask, with_ew, elem=4):
 
 # (row name, rows m) of the attention calls: the serving and training
 # paths' hop level (batch 256 x 20 queries) and root, and the explainer's
-# hop level (batch 100 x 20) and root
+# hop level (batch 100 x 20) and root, which are also the shapes of the
+# enhance TGN's training form (``attend_drop``, ``attend_bwd``)
 ATTEND_SHAPES = (("hop m=5120", BATCH * N_DEGREE), ("root m=256", BATCH),
                  ("explain hop m=2000", 100 * N_DEGREE),
                  ("explain root m=100", 100))
@@ -612,14 +613,18 @@ def check_attend_train(torch, dev):
 DATA_NAME = "wikishape"
 
 
-def write_stream(ds_dir, name=DATA_NAME, num_events=None):
+def write_stream(ds_dir, name=DATA_NAME, num_events=None, trim_nodes=False):
     """The wikipedia-shaped stream (its first ``num_events`` events, all by
     default) in the ``ml_{name}`` CSV/NPY layout that ``load_dataset``
-    reads."""
+    reads; with ``trim_nodes`` the node table ends at the largest node id
+    those events hold (a TGN keeps one memory row per id up to it, as in
+    the JAX package, and adds the table to it row for row)."""
     import numpy as np
     from tempme_tpu_torch.data.synthetic import make_large_shaped
     ev, node_feat, edge_feat = make_large_shaped("wikipedia")
     k = num_events or len(ev)
+    if trim_nodes:
+        node_feat = node_feat[:max(ev.src[:k].max(), ev.dst[:k].max()) + 1]
     table = np.stack([np.arange(k), ev.src[:k], ev.dst[:k], ev.ts[:k],
                       ev.label[:k], ev.e_idx[:k]], axis=1).astype(np.float64)
     np.savetxt(os.path.join(ds_dir, f"ml_{name}.csv"), table,
@@ -1683,12 +1688,22 @@ def tgat_steps_on(dev, ds, blob, compute_dtype):
                                       N_DEGREE, opt)
 
 
-def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4):
+def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4,
+                        exact_zero=(), looser=(), fresh_adam=False):
     """Loss rtol 1e-4; gradients rtol 1e-3, atol ``grad_atol`` (1e-4 by
     default) of each tensor's largest; params after Adam rtol 1e-5, atol
     1e-6 where the gradient is settled (at least 1e-4 of its tensor's
     largest), within lr elsewhere (Adam turns round-off gradients into
-    steps of up to lr)."""
+    steps of up to lr). A parameter whose name ends in one of
+    ``exact_zero`` has a gradient that is zero in exact arithmetic (an
+    attention's key bias, which the softmax cancels): its round-off is held
+    to ``grad_atol`` of the model's largest gradient, none of it is
+    settled, and each side may step it by up to lr either way. ``looser``
+    pairs a part of a name with its own ``grad_atol``. With ``fresh_adam``
+    (the step is Adam's first) the unsettled entries are held within 2 lr:
+    the first step moves an entry by lr g / (|g| + eps), so a round-off
+    gradient above eps whose sign differs between the sides parts them by
+    up to 2 lr."""
     import torch
     loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
     if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
@@ -1696,19 +1711,25 @@ def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4):
                              f"on the CPU")
     worst_g, worst_p, unsettled = 0.0, 0.0, 0
     params_c = dict(step_c.model.named_parameters())
+    model_top = max(p.grad.abs().max().item() for p in params_c.values())
     for name, p in step_g.model.named_parameters():
         pc = params_c[name]
         g_c, g_g = pc.grad, p.grad.cpu()
-        top = g_c.abs().max().item()
-        torch.testing.assert_close(g_g, g_c, rtol=1e-3,
-                                   atol=grad_atol * top,
+        zero = name.endswith(exact_zero) if exact_zero else False
+        top = model_top if zero else g_c.abs().max().item()
+        atol = next((a for part, a in looser if part in name), grad_atol)
+        torch.testing.assert_close(g_g, g_c, rtol=0.0 if zero else 1e-3,
+                                   atol=atol * top,
                                    msg=lambda m: f"{name} grad: {m}")
         worst_g = max(worst_g, (g_g - g_c).abs().max().item() / max(top,
                                                                     1e-30))
         settled = g_c.abs() >= 1e-4 * top
+        if zero:
+            settled &= False
         unsettled += int((~settled).sum())
         diff = (p.detach().cpu() - pc.detach()).abs()
-        if diff.max().item() > LR * 1.001:
+        if diff.max().item() > LR * (2.002 if zero or fresh_adam
+                                     else 1.001):
             raise AssertionError(f"{name}: params after Adam differ by "
                                  f"{diff.max().item()}")
         torch.testing.assert_close(p.detach().cpu()[settled],
@@ -2149,11 +2170,12 @@ def check_uslegis_mixer(ds, dev):
     from tempme_tpu_torch.train import loops
     from tempme_tpu_torch.utils.checkpoint import load_meta
     from tempme_tpu_torch.utils.convert import (flax_to_state_dict,
+                                                mixer_blocks,
                                                 read_flax_msgpack)
     path = os.path.join(ROOT, USLEGIS_MIXER)
     meta = load_meta(path)
     state = flax_to_state_dict(read_flax_msgpack(path))
-    blocks = len({k.split(".")[1] for k in state if k.startswith("mixers.")})
+    blocks = mixer_blocks(state)
     if (blocks, meta["n_layer"]) != (3, 2):
         raise AssertionError(f"uslegis GraphMixer: {blocks} blocks, meta "
                              f"n_layer {meta['n_layer']}")
@@ -2292,6 +2314,541 @@ def graphmixer_phases(work, ds_dir, dsm, dev, torch):
     profile_explainer(dsm, ckpt, dev, base_type="graphmixer",
                       data=MIXER_DATA)
     return launches, x_launches, numbers, x_numbers
+
+
+# ---------------------------------------------------------------------------
+# Enhance, the pipeline's third stage, on the same 30,000-event cut: a TGN
+# base trained here first, the GraphMixer of [mixer-train], and (walks
+# alone) the TGAT branch with the n_degree of [tgat-train]'s checkpoint
+ENHANCE_DATA = TGAT_DATA
+# the same events for the TGN, its node table ending at the cut's largest
+# node id (the cut never holds the last 5 item ids, whose rows a TGN's
+# memory would lack)
+ENHANCE_TGN_DATA = TGAT_DATA + "tgn"
+ENHANCE_BATCH = 100                  # enhance_main's default
+ENHANCE_REF_BATCH = 32               # the card-vs-CPU step's batch
+# launches per step: every base samples 3 sides x 2 hops and each side's
+# walk events 2 and 3; a TGN embeds 3 sides x 2 layers (the training form
+# and its backward in a train step, the eval form in an eval step); no
+# step carries walks onto edges
+_ENHANCE_WALKS = dict(sample_rows=6, sample_union=3, sample_masked=3,
+                      walk_to_edge=0, walk_to_edge_bwd=0)
+_NO_ATTENTION = dict(attend=0, attend_drop=0, attend_bwd=0)
+ENHANCE_PER_STEP = {
+    "tgn": {"train": dict(_ENHANCE_WALKS, attend=0, attend_drop=6,
+                          attend_bwd=6),
+            "eval": dict(_ENHANCE_WALKS, attend=6, attend_drop=0,
+                         attend_bwd=0)},
+    "graphmixer": {p: dict(_ENHANCE_WALKS, **_NO_ATTENTION)
+                   for p in ("train", "eval")}}
+ENHANCE_PER_STEP["tgat"] = ENHANCE_PER_STEP["graphmixer"]
+USLEGIS_ENHANCE = "params/enhance/{}/uslegis_sampled.msgpack"
+
+
+def enhance_argv(ds_dir, ckpt_dir, out, base_type, data, *extra):
+    """``enhance_main`` at its defaults (batch 100, 60 walks a side,
+    out_dim 40, hid_dim 64, dropout 0.1, Adam lr 1e-3), one epoch."""
+    return ["--data", data, "--data_dir", ds_dir,
+            "--base_type", base_type, "--ckpt_dir", ckpt_dir,
+            "--n_epoch", "1", "--seed", str(SEED),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def enhance_ckpt_dir(out, base_ckpt_dir, base_type, data):
+    """A checkpoint directory under ``out`` that holds a copy of the base's
+    checkpoint (``tgnn/``), beside which enhance writes its own."""
+    import shutil
+    mine = os.path.join(out, "params")
+    os.makedirs(os.path.join(mine, "tgnn"))
+    for suffix in ("", ".json"):
+        shutil.copy(os.path.join(base_ckpt_dir, "tgnn",
+                                 f"{base_type}_{data}.pt{suffix}"),
+                    os.path.join(mine, "tgnn"))
+    return mine
+
+
+def enhance(ds, ds_dir, base_ckpt_dir, out, torch, base_type,
+            data=ENHANCE_DATA, epochs=1):
+    """``enhance_main.main`` for ``epochs`` epochs at full width on the
+    card on the base of ``base_ckpt_dir``, with ``ENHANCE_PER_STEP``
+    launches of each kernel per train and eval step: finite losses, APs in
+    [0, 1], the files written, the saved base moved off the loaded one. A
+    run of 2 epochs also keeps a copy of its enhance directory as it stood
+    after epoch 0. Returns (launches, numbers, checkpoint dir, that
+    copy)."""
+    import math
+    import shutil
+    from tempme_tpu_torch.train import enhance_main
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    kernels = explain_kernels()
+    is_tgat = base_type == "tgat"
+    steps = {"train": len(ds.train) // ENHANCE_BATCH,
+             "eval": math.ceil(len(ds.test) / ENHANCE_BATCH)
+             + (0 if is_tgat else math.ceil(len(ds.val) / ENHANCE_BATCH))}
+    per_step = ENHANCE_PER_STEP[base_type]
+    want = {k: epochs * sum(per_step[p][k] * n for p, n in steps.items())
+            for k in kernels}
+    ckpt_dir = enhance_ckpt_dir(out, base_ckpt_dir, base_type, data)
+    snapshot = os.path.join(out, "after_epoch0")
+    save = enhance_main.save_checkpoint
+
+    def snapshotting_save(path, blob, meta=None):
+        save(path, blob, meta=meta)
+        if epochs > 1 and path.endswith(".train_state") and \
+                meta["epoch"] == 0:
+            shutil.copytree(os.path.dirname(path), snapshot)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    enhance_main.save_checkpoint = snapshotting_save
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            ap = enhance_main.main(enhance_argv(
+                ds_dir, ckpt_dir, out, base_type, data, "--n_epoch",
+                str(epochs)))
+    finally:
+        enhance_main.save_checkpoint = save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    say(f"  launches on the {base_type} enhance path: {launches} for "
+        f"{epochs} x ({steps['train']} train and {steps['eval']} eval "
+        f"steps); per step {per_step}")
+    check_launches(launches, want)
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != epochs * steps["train"] or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"an enhance {base_type} loss is missing or "
+                             "not finite")
+    tenth = max(1, steps["train"] // 10)
+    first, last = (sum(x) / len(x) for x in (losses[:tenth],
+                                              losses[-tenth:]))
+    eps = tags["Train/events_per_s"][0]
+    numbers = dict(train_ms_per_step=ENHANCE_BATCH / eps * 1e3,
+                   events_per_s=eps, loss_first_tenth=first,
+                   loss_last_tenth=last, train_ap=tags["Train/ap"][0],
+                   test_ap=tags["Test/ap"][0], test_auc=tags["Test/auc"][0],
+                   best_test_ap=ap, peak_gib=peak / 2 ** 30, wall_s=wall,
+                   train_steps=steps["train"], eval_steps=steps["eval"])
+    if not is_tgat:
+        numbers["val_ap"] = tags["Val/ap"][0]
+    for key in ("train_ap", "test_ap", "test_auc", "best_test_ap",
+                "val_ap"):
+        if key in numbers and not 0.0 <= numbers[key] <= 1.0:
+            raise AssertionError(f"enhance {base_type} {key} "
+                                 f"{numbers[key]} outside [0, 1]")
+    best = os.path.join(ckpt_dir, "enhance", base_type, f"{data}.pt")
+    paths = [best, best + ".json", os.path.join(
+        out, "results", f"enhance_{base_type}_{data}.json")]
+    if not is_tgat:
+        paths.append(best + ".train_state")
+    if epochs > 1:
+        paths.append(snapshot)
+    for path in paths:
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {path}")
+    if not is_tgat:
+        saved, _ = load_checkpoint(best + ".train_state", map_location="cpu")
+        loaded, _ = load_checkpoint(os.path.join(
+            ckpt_dir, "tgnn", f"{base_type}_{data}.pt"), map_location="cpu")
+        moved = sum(not torch.equal(saved["base"][k], x)
+                    for k, x in loaded["params"].items())
+        if not moved:
+            raise AssertionError(f"enhance left the {base_type} base as it "
+                                 f"was loaded")
+        numbers["base_tensors_moved"] = moved
+    say(f"  {epochs} x {steps['train']} steps: "
+        f"{numbers['train_ms_per_step']:.3f} ms/step, {eps:.1f} events/s "
+        f"(the driver's epoch clock, epoch 0); mean loss first tenth "
+        f"{first:.6f}, last tenth {last:.6f}; train AP "
+        f"{numbers['train_ap']:.6f}, "
+        + (f"val AP {numbers['val_ap']:.6f}, " if not is_tgat else "")
+        + f"test AP {numbers['test_ap']:.6f}, AUC {numbers['test_auc']:.6f}"
+        f" (epoch 0), best checkpoint's test AP {ap:.6f}; peak device "
+        f"memory {peak / 2 ** 30:.3f} GiB; main() {wall:.2f} s with loading "
+        f"and eval"
+        + (f"; {numbers['base_tensors_moved']} of the base's tensors moved"
+           if not is_tgat else ""))
+    return launches, numbers, ckpt_dir, snapshot
+
+
+def enhance_resume(ds_dir, whole_dir, snapshot, out, base_type):
+    """``--n_epoch 2 --resume`` from ``snapshot`` (the enhance directory of
+    a 2-epoch run as it stood after epoch 0: its train state and best
+    checkpoint) in a fresh directory: the train state (both models, Adam,
+    the generator), the best checkpoint and the results equal, tensor by
+    tensor, those the uninterrupted run (``whole_dir``) wrote."""
+    import shutil
+    import torch
+    from tempme_tpu_torch.train import enhance_main
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    mine = enhance_ckpt_dir(out, whole_dir, base_type, ENHANCE_DATA)
+    shutil.copytree(snapshot, os.path.join(mine, "enhance", base_type))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        enhance_main.main(enhance_argv(ds_dir, mine, out, base_type,
+                                       ENHANCE_DATA, "--n_epoch", "2",
+                                       "--resume"))
+    if "at epoch 1" not in printed.getvalue():
+        raise AssertionError("the enhance run did not resume at epoch 1")
+    for line in printed.getvalue().splitlines()[-4:]:
+        say(f"    | {line}")
+
+    def same(a, b, where):
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{where} differs from the "
+                                     f"uninterrupted run")
+        elif isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise AssertionError(f"{where}: keys differ")
+            for k in a:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        elif a != b:
+            raise AssertionError(f"{where}: {a} != {b}")
+
+    best = os.path.join("enhance", base_type, f"{ENHANCE_DATA}.pt")
+    for name in (best, best + ".train_state"):
+        same(load_checkpoint(os.path.join(mine, name), "cpu")[0],
+             load_checkpoint(os.path.join(whole_dir, name), "cpu")[0], name)
+    for a, b in ((os.path.join(mine, best + ".json"),
+                  os.path.join(whole_dir, best + ".json")),
+                 (os.path.join(mine, best + ".train_state.json"),
+                  os.path.join(whole_dir, best + ".train_state.json")),
+                 (os.path.join(out, "results",
+                               f"enhance_{base_type}_{ENHANCE_DATA}.json"),
+                  os.path.join(os.path.dirname(whole_dir), "results",
+                               f"enhance_{base_type}_{ENHANCE_DATA}.json"))):
+        with open(a) as fa, open(b) as fb:
+            if json.load(fa) != json.load(fb):
+                raise AssertionError(f"{a} differs from {b}")
+    say("  the resumed run's train state (both models, Adam, the "
+        "generator), best checkpoint and results equal the uninterrupted "
+        "2-epoch run's, tensor by tensor")
+
+
+def enhance_steps_on(dev, ds, ckpt_dir, base_type, compute_dtype, data):
+    """The enhance train step on ``dev`` from what [enhance-*] wrote in
+    ``ckpt_dir``: for a TGN or a GraphMixer its train state (predictor,
+    base with a TGN's projections at ``compute_dtype``, Adam, memory), for
+    a TGAT its best predictor and a fresh Adam. Returns (step, memory)."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.explain.tempme import TempME
+    from tempme_tpu_torch.explain.tempme_tgat import TempMETGAT
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.tgn import TGNMemoryState
+    from tempme_tpu_torch.tools.node_degrees import compute_node_degrees
+    from tempme_tpu_torch.train.base_loader import load_base
+    from tempme_tpu_torch.train.enhance_main import EnhanceTrainStep
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    g = build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    deg = torch.from_numpy(compute_node_degrees(ds.full)).to(dev)
+    best = os.path.join(ckpt_dir, "enhance", base_type, f"{data}.pt")
+    dims = (ds.node_feat.shape[1], ds.edge_feat.shape[1])
+    mem = base = None
+    if base_type == "tgat":
+        blob, _ = load_checkpoint(best, map_location="cpu")
+        predictor = TempMETGAT(*dims, device=dev, seed=SEED)
+        predictor.load_state_dict(blob["predictor"])
+        opt = torch.optim.Adam(predictor.parameters(), lr=LR)
+    else:
+        blob, _ = load_checkpoint(best + ".train_state", map_location="cpu")
+        base = load_base(os.path.join(ckpt_dir, "tgnn",
+                                      f"{base_type}_{data}.pt"),
+                         device=dev, compute_dtype=compute_dtype,
+                         trainable=True)
+        base.model.load_state_dict(blob["base"])
+        predictor = TempME(*dims, base_type=base_type, device=dev, seed=SEED)
+        predictor.load_state_dict(blob["predictor"])
+        opt = torch.optim.Adam(
+            [{"params": list(predictor.parameters())},
+             {"params": list(base.model.parameters()), "weight_decay": 0.0}],
+            lr=LR)
+        opt.load_state_dict(copy.deepcopy(blob["opt_state"]))
+        if base_type == "tgn":
+            mem = TGNMemoryState(**{k: v.to(dev)
+                                    for k, v in blob["memory"].items()})
+    step = EnhanceTrainStep(predictor, base, g, feats,
+                            torch.from_numpy(dst).to(dev), N_DEGREE, deg,
+                            opt)
+    return step, mem
+
+
+class _Joint:
+    """The predictor and the base as one ``model`` (``compare_train_steps``
+    reads ``model.named_parameters()``)."""
+
+    def __init__(self, step):
+        import torch
+        parts = {"predictor": step.predictor}
+        if step.base is not None:
+            parts["base"] = step.base.model
+        self.model = torch.nn.ModuleDict(parts)
+
+
+# the layers whose output enters a ReLU (the TGN's message MLP and
+# merges, TempME's event conv, motif attention and affinity, the TGAT
+# predictor's feed-forwards and walk MLP): a pre-activation within
+# round-off of zero lands on the ReLU's other side on one device, and that
+# sample's whole outer product then enters one side's gradient only, in one
+# hidden unit's row and bias. On an H100 the TGN's first message-MLP layer
+# differed so by 4.8e-4 of its largest (unit 95) and the TGAT predictor's
+# walk_enc_cat.fc1 by 3.6e-4 (unit 242); every other tensor of the three
+# enhance steps stayed within 1.5e-4
+RELU_FED = ("message_mlp.0.", "merger.fc1.", "event_conv.fc1.",
+            "event_conv.lin_event.", "attention.fc1.", "aff_fc1.",
+            "event_enc.fc1.", "walk_enc_cat.fc1.", "mlp_attn_d1.")
+
+
+def check_enhance_against_cpu(ds, ckpt_dir, dev, base_type, grad_atol,
+                              data=ENHANCE_DATA):
+    """One enhance train step (batch ``ENHANCE_REF_BATCH``, dropout 0.1,
+    the same draws) on the card and on the CPU from the same state at
+    float32: ``compare_train_steps`` over predictor and base at
+    ``grad_atol`` (the base's own train step's: a TGN's and a TGAT's 1e-4,
+    a GraphMixer's 5e-4), 1e-3 for the layers that feed a ReLU
+    (``RELU_FED``), the attention key biases of a TGAT's predictor as exact
+    zeros, and its step as Adam's first (no train state); a TGN's new
+    memory rtol 2e-4, atol 1e-5 (its flags exactly)."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    cpu = torch.device("cpu")
+    step_c, mem_c = enhance_steps_on(cpu, ds, ckpt_dir, base_type,
+                                     torch.float32, data)
+    step_g, mem_g = enhance_steps_on(dev, ds, ckpt_dir, base_type,
+                                     torch.float32, data)
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, ENHANCE_REF_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 31)
+    draws = step_c.draw(gen, ENHANCE_REF_BATCH)
+    new_c, aux_c = step_c(mem_c, batch, draws)
+    new_g, aux_g = step_g(mem_g, to_device(batch, dev),
+                          to_device(draws, dev))
+    torch.cuda.synchronize()
+    compare_train_steps(_Joint(step_c), aux_c, _Joint(step_g), aux_g,
+                        f"{base_type} enhance step", grad_atol=grad_atol,
+                        exact_zero=("self_attn.key.bias",),
+                        looser=tuple((part, 1e-3) for part in RELU_FED),
+                        fresh_adam=base_type == "tgat")
+    if new_c is not None:
+        for name, a, b in zip(new_c._fields, new_g, new_c):
+            if a.dtype == torch.bool:
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"memory {name} differs from the "
+                                         f"CPU")
+            else:
+                torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+        say("  the TGN's new memory agrees")
+
+
+def check_uslegis_enhance(ds, dev):
+    """The committed uslegis enhance checkpoints (read by the port's own
+    reader; the TGN's predictor at hid_dim 32, the GraphMixer's base with
+    the 2 blocks JAX's loader trained, C7; the TGAT's predictor alone)
+    score 8 events of the stream (edge features cut to width 1) through
+    the base's embeddings and ``enhance_predict_agg`` over supports and
+    walks of n 30, on the card and on the CPU with the same inputs, at
+    float32: rtol 2e-4, atol 1e-5."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.explain.tempme import TempME
+    from tempme_tpu_torch.explain.tempme_tgat import TempMETGAT
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.graphmixer import GraphMixer
+    from tempme_tpu_torch.models.tgn import TGN, init_memory_state
+    from tempme_tpu_torch.tools.node_degrees import compute_node_degrees
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.train.enhance_main import N_WALK_CONT
+    from tempme_tpu_torch.train.temp_exp_main import sample_explainer_inputs
+    from tempme_tpu_torch.utils.checkpoint import load_meta
+    from tempme_tpu_torch.utils.convert import (enhance_state_dicts,
+                                                mixer_blocks,
+                                                read_flax_msgpack)
+    cpu = torch.device("cpu")
+    n, b = 30, 8
+    g = build_temporal_graph(ds.full, ds.full.num_nodes, ds.full.num_edges,
+                             device=cpu)
+    feats = Features(torch.from_numpy(ds.node_feat),
+                     torch.from_numpy(ds.edge_feat[:, :1].copy()))
+    dst = torch.from_numpy(RandEdgeSampler([ds.test.src],
+                                           [ds.test.dst]).dst_list)
+    deg = torch.from_numpy(compute_node_degrees(ds.full))
+    batch = next(loops.iter_batches(ds.test, b, False, cpu))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 37)
+    draws = loops.draw_enhance(gen, b, n, N_WALK_CONT, dst.shape[0], cpu)
+    bgd, subs, walks = sample_explainer_inputs(g, batch, dst, n, draws)
+    for base_type in ("tgn", "graphmixer", "tgat"):
+        path = os.path.join(ROOT, USLEGIS_ENHANCE.format(base_type))
+        meta = load_meta(path)
+        sd = enhance_state_dicts(read_flax_msgpack(path))
+        out = []
+        for d in (cpu, dev):
+            if base_type == "tgat":
+                pred = TempMETGAT(172, 1, out_dim=meta["out_dim"],
+                                  hid_dim=meta["hid_dim"], device=d)
+            else:
+                pred = TempME(172, 1, out_dim=meta["out_dim"],
+                              hid_dim=meta["hid_dim"], base_type=base_type,
+                              device=d)
+            pred.load_state_dict(sd["predictor"])
+            args = [to_device(feats, d), batch.ts.to(d),
+                    *(to_device(w, d) for w in walks)]
+            ids = [x.to(d) for x in (batch.src, batch.dst, bgd, batch.ts)]
+            dsubs = [to_device(s, d) for s in subs]
+            with torch.no_grad():
+                if base_type == "tgn":           # zero memory, a row a node
+                    nodes = ds.node_feat.shape[0]
+                    model = TGN(172, 1, nodes, device=d,
+                                compute_dtype=torch.float32)
+                    model.load_state_dict(sd["base"])
+                    mem = init_memory_state(nodes, model.memory_dim,
+                                            model.raw_message_dim, device=d)
+                    embs, _ = model.get_node_emb(
+                        args[0], mem, *ids, batch.eidx.to(d), *dsubs,
+                        update_memory=False)
+                    args += list(embs)
+                elif base_type == "graphmixer":
+                    model = GraphMixer(172, 1, n,
+                                       num_layers=mixer_blocks(sd["base"]),
+                                       device=d)
+                    model.load_state_dict(sd["base"])
+                    args += list(model.get_node_emb(args[0], *ids, *dsubs))
+                out.append(pred.enhance_predict_agg(*args, deg.to(d)))
+        torch.cuda.synchronize()
+        for a, c in zip(out[1], out[0]):
+            torch.testing.assert_close(a.cpu(), c, rtol=2e-4, atol=1e-5)
+        err = max((a.cpu() - c).abs().max().item()
+                  for a, c in zip(out[1], out[0]))
+        blocks = f", {mixer_blocks(sd['base'])} blocks (C7)" \
+            if base_type == "graphmixer" else ""
+        say(f"  uslegis {base_type} enhance (out_dim {meta['out_dim']}, "
+            f"hid_dim {meta['hid_dim']}{blocks}): logits card against CPU "
+            f"max abs err {err:.3e} at float32 (rtol 2e-4, atol 1e-5)")
+
+
+def profile_enhance(ds, ckpt_dir, dev, n_steps=20):
+    """20 TGN enhance train steps at batch 100 as the driver runs them
+    (bf16 projections, draws from a generator), from [enhance-tgn]'s train
+    state."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    step, mem = enhance_steps_on(dev, ds, ckpt_dir, "tgn", torch.bfloat16,
+                                 ENHANCE_TGN_DATA)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 41)
+    batches = loops.stack_batches(ds.train, ENHANCE_BATCH, True, SEED + 7,
+                                  dev)
+    work = [loops.Batch(*(x[i] for x in batches)) for i in range(n_steps)]
+    state = [mem]
+
+    def run(i):
+        state[0], _ = step(state[0], work[i],
+                           step.draw(gen, ENHANCE_BATCH))
+    run(0)                                   # warm up off the window
+    profile_steps(run, n_steps)
+
+
+def enhance_tgn_base_argv(ds_dir, out, *extra):
+    """``learn_base --base_type tgn`` on the 30,000-event cut, at the TGN
+    cells' flags (batch 256, 20 neighbours, dropout 0.1, Adam lr 1e-3),
+    one epoch."""
+    return ["--data", ENHANCE_TGN_DATA, "--data_dir", ds_dir,
+            "--base_type", "tgn", "--bs", str(BATCH),
+            "--n_degree", str(N_DEGREE), "--n_epoch", "1",
+            "--drop_out", str(DROPOUT), "--lr", str(LR), "--seed", str(SEED),
+            "--out_dir", os.path.join(out, "params", "tgnn"),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *extra]
+
+
+def enhance_phases(work, ds_dir, ds30, dev, torch):
+    """[enhance-tgn], [enhance-mixer], [enhance-resume], [enhance-tgat],
+    [enhance-reference] and [trace-enhance] on ``ds30``, the stream
+    ``ENHANCE_DATA`` that ``ds_dir`` holds. Returns (launches per path,
+    numbers per path)."""
+    from tempme_tpu_torch.data.events import load_dataset
+    from tempme_tpu_torch.train import learn_base
+    base_out = os.path.join(work, "enhance_tgn_base")
+    write_stream(ds_dir, ENHANCE_TGN_DATA, TGAT_EVENTS, trim_nodes=True)
+    ds_tgn = load_dataset(ENHANCE_TGN_DATA, ds_dir)
+    say(f"[enhance-tgn] learn_base --base_type tgn on ml_{ENHANCE_TGN_DATA} "
+        f"(the events of ml_{ENHANCE_DATA}, the node table cut to its "
+        f"{ds_tgn.node_feat.shape[0]} ids; batch {BATCH}, {N_DEGREE} "
+        f"neighbours, dropout {DROPOUT}, one "
+        f"epoch), then enhance_main --base_type tgn on it: one epoch at its "
+        f"defaults (batch {ENHANCE_BATCH}, 60 walks a side, out_dim 40, "
+        f"hid_dim 64, dropout {DROPOUT}, Adam lr {LR}), the base trained "
+        f"jointly (bf16 projections), then val and test")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        base_ap = learn_base.main(enhance_tgn_base_argv(ds_dir, base_out))
+    if not 0.0 <= base_ap <= 1.0:
+        raise AssertionError(f"the enhance TGN base's test AP {base_ap}")
+    say(f"  the TGN base: test AP {base_ap:.6f}, trained in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches, numbers = {}, {}
+    launches["enhance-tgn"], numbers["enhance-tgn"], tgn_ckpt, _ = enhance(
+        ds_tgn, ds_dir, os.path.join(base_out, "params"),
+        os.path.join(work, "enhance_tgn"), torch, "tgn", ENHANCE_TGN_DATA)
+    say("[enhance-mixer] enhance_main --base_type graphmixer on the "
+        "GraphMixer of [mixer-train] (3 blocks, all trained jointly): 2 "
+        "epochs uninterrupted, the second for [enhance-resume]")
+    mixer_out = os.path.join(work, "enhance_mixer")
+    launches["enhance-mixer"], numbers["enhance-mixer"], mixer_ckpt, snap = \
+        enhance(ds30, ds_dir, os.path.join(work, "mixer", "params"),
+                mixer_out, torch, "graphmixer", epochs=2)
+    say("[enhance-resume] --n_epoch 2 --resume from the enhance GraphMixer's "
+        "state after epoch 0, against the uninterrupted 2-epoch run")
+    t0 = time.perf_counter()
+    enhance_resume(ds_dir, mixer_ckpt, snap,
+                   os.path.join(work, "enhance_mixer_resume"), "graphmixer")
+    say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
+    say("[enhance-tgat] enhance_main --base_type tgat (TempMETGAT on the "
+        "walks alone, 8 heads, walk_enc_cat at width 52; n_degree from "
+        "[tgat-train]'s checkpoint meta): one epoch, then test")
+    launches["enhance-tgat"], numbers["enhance-tgat"], tgat_ckpt, _ = \
+        enhance(ds30, ds_dir, os.path.join(work, "tgat", "params"),
+                os.path.join(work, "enhance_tgat"), torch, "tgat")
+    say(f"[enhance-reference] one enhance train step (batch "
+        f"{ENHANCE_REF_BATCH}, dropout {DROPOUT}, the same draws) of each "
+        f"base on the card against the CPU from the state its run wrote, at "
+        f"float32 (loss rtol 1e-4; gradients of predictor and base rtol "
+        f"1e-3, atol 1e-4 of the tensor's largest, 5e-4 for a GraphMixer, "
+        f"1e-3 for a layer that feeds a ReLU; "
+        f"params after Adam rtol 1e-5, atol 1e-6 where settled, within lr "
+        f"elsewhere, 2 lr after the TGAT's fresh Adam; a TGN's memory rtol "
+        f"2e-4, atol 1e-5); the committed "
+        f"uslegis enhance checkpoints")
+    check_enhance_against_cpu(ds_tgn, tgn_ckpt, dev, "tgn", 1e-4,
+                              ENHANCE_TGN_DATA)
+    check_enhance_against_cpu(ds30, mixer_ckpt, dev, "graphmixer", 5e-4)
+    check_enhance_against_cpu(ds30, tgat_ckpt, dev, "tgat", 1e-4)
+    check_uslegis_enhance(ds30, dev)
+    say(f"[trace-enhance] torch.profiler over 20 TGN enhance train steps at "
+        f"batch {ENHANCE_BATCH} (not counted above)")
+    profile_enhance(ds_tgn, tgn_ckpt, dev)
+    return launches, numbers
 
 
 def main():
@@ -2504,22 +3061,31 @@ def main():
         profile_tgat_training(ds30, tgat_out, dev)
         mixer_launches, mx_launches, mixer_numbers, mx_numbers = \
             graphmixer_phases(work, ds_dir, ds30, dev, torch)
+        enhance_launches, enhance_numbers = enhance_phases(
+            work, ds_dir, ds30, dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
     say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
     say(f"  GraphMixer training cell: {json.dumps(mixer_numbers)}")
     say(f"  GraphMixer explainer cell: {json.dumps(mx_numbers)}")
+    for path, nums in enhance_numbers.items():
+        say(f"  {path} cell: {json.dumps(nums)}")
 
     by_path = {"serve": serve_launches, "train": launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
-               "mixer-explain": mx_launches}
+               "mixer-explain": mx_launches, **enhance_launches}
     tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
                 "attend": "attend tgat m=12800 dk=258 bfloat16",
                 "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",
                 "attend_bwd": "attend_bwd tgat m=12800 dk=258 bfloat16",
                 "walk_to_edge": "walk_to_edge scan path S=8192 T=400"}
+    # the enhance TGN's training shapes (batch 100, n 20, d_k 172, bf16):
+    # hop level m 2,000 and root m 100, the train form (no explain weight)
+    enhance_rows = ("explain hop m=2000 bfloat16",
+                    "explain root m=100 bfloat16")
+    enhance_of = {"attend_drop": drop_rows, "attend_bwd": bwd_rows}
     kernels = []
     csrc = "tempme_tpu_torch/ops/kernels/csrc/"
     pallas = "tempme_tpu/ops/pallas/"
@@ -2560,7 +3126,11 @@ def main():
                         "library_ms": rows.get("library_ms"),
                         "tgat": dict(tgat_rows[tgat_row[name]],
                                      shape=tgat_row[name])
-                        if name in tgat_row else None})
+                        if name in tgat_row else None,
+                        "enhance": [dict(enhance_of[name][shape],
+                                         shape=shape)
+                                    for shape in enhance_rows]
+                        if name in enhance_of else None})
     say(f"[done] chip_smoke.py ran {time.perf_counter() - T0:.1f} s, the "
         f"kernels' build included")
     say(json.dumps({"kernels": kernels}))

@@ -10,9 +10,13 @@ dependency gate and samples it by a Beta reparameterisation in training
 null model's motif prior. A TGN's explanation covers hops 0 and 1; a
 GraphMixer reads hop 0 only, so its explainer carries the importances onto
 hop 0 alone (the JAX package computes hop 1 too and drops it).
-``walk_embedding`` and ``_affinity`` belong to the enhance path; they are
-here so that every parameter of a JAX checkpoint has a home
-(``utils/convert.py``), and the enhance driver is not ported.
+
+The enhance form (``train/enhance_main.py``) reads the explainer as a
+predictor: ``walk_embedding`` sums each side's motif hiddens over its
+walks, weighted by ``compute_walk_importance`` (recency and node degree),
+beside the summed one-hot motif classes; ``enhance_predict_agg`` joins
+them with the base's node embeddings and scores the positive and the
+negative pair through ``_affinity`` (``aff_fc1``, relu, ``aff_fc2``).
 
 Every parameter exists from construction on (flax creates them in
 ``init_all`` by running each path once). Layers start from the JAX
@@ -20,7 +24,8 @@ package's initialisers, on the CPU from ``seed``, then move to ``device``.
 
 Random numbers enter as tensors, as in the TGN: the dropout uniforms of
 each site (``ImpDraws`` for the walk importance, ``EdgeDraws`` for the
-dependency gate; a site keeps where ``u >= rate`` and scales by
+dependency gate, ``EnhanceDraws`` for the enhance form's motif attention;
+a site keeps where ``u >= rate`` and scales by
 ``1 / (1 - rate)``) and the Beta sample's two gamma draws. The gamma draws
 are taken from a generator, or passed in; either way their gradient with
 respect to the shape is the implicit-reparameterisation derivative
@@ -66,6 +71,13 @@ class ImpDraws(NamedTuple):
     alpha: torch.Tensor    # [B, W, 1, 2]: the motif attention's weights
     hidden: torch.Tensor   # [B, W, 1, hid]: the motif attention's hidden
     head: torch.Tensor     # [B, W, hid + 12]: the head's first layer
+
+
+class EnhanceDraws(NamedTuple):
+    """Dropout uniforms of one side's walk embedding (the enhance form):
+    the motif attention's two sites."""
+    alpha: torch.Tensor    # [B, W, 1, 2]
+    hidden: torch.Tensor   # [B, W, 1, hid]
 
 
 class EdgeDraws(NamedTuple):
@@ -131,14 +143,16 @@ def kl_sparsity_loss(prob, cat, null_dist, target: float = 0.3,
     return kl.mean()
 
 
-def compute_walk_importance(time_idx, node_idx, cut_time, node_degree):
+def compute_walk_importance(time_idx, node_idx, cut_time, node_degree=None):
     """Soft walk weights: 0.5 recency + 0.5 degree sigmoid, normalised to
-    mean 1 over the walks."""
+    mean 1 over the walks. ``node_degree`` [N], or None for a degree of 1
+    at every node."""
     w = time_idx.shape[1]
     delta = (cut_time[:, None] - time_idx.amax(dim=-1)).abs()
     recency = torch.exp(-delta / (delta.std() + 1e-6))
     valid = node_idx > 0
-    degs = torch.where(valid, node_degree[node_idx.long()], 0.0)
+    degs = valid.float() if node_degree is None else \
+        torch.where(valid, node_degree[node_idx.long()], 0.0)
     avg_deg = degs.sum(-1) / (valid.sum(-1).float() + 1e-6)
     deg_w = torch.sigmoid((avg_deg - avg_deg.mean()) / (avg_deg.std() + 1e-6))
     imp = 0.5 * recency + 0.5 * deg_w
@@ -199,6 +213,8 @@ class TemporalAwareMotifAttention(nn.Module):
 
 
 class TempME(nn.Module):
+    enhance_draws_type = EnhanceDraws
+
     def __init__(self, node_dim: int, edge_dim: int, out_dim: int = 40,
                  hid_dim: int = 64, base_type: str = "tgn",
                  prior: str = "empirical", if_cat: bool = True,
@@ -323,13 +339,21 @@ class TempME(nn.Module):
         return [torch.cat([s[h] for s in per_side], dim=0)
                 for h in range(len(self.hops))]
 
-    # -- enhance path (parameters only; its driver is not ported) -------
+    # -- enhance form ------------------------------------------------
+    def enhance_draw_shapes(self, batch_size: int, n_walks: int):
+        """The shapes of one side's ``EnhanceDraws``."""
+        return (batch_size, n_walks, 1, 2), (batch_size, n_walks, 1,
+                                             self.hid_dim)
+
     def walk_embedding(self, feats: Features, walks: WalkInputs, cut_time,
-                       node_degree=None):
-        h = self._motif_hidden(feats, walks, cut_time, None)
-        if node_degree is None:
-            node_degree = torch.ones(feats.node.shape[0],
-                                     device=feats.node.device)
+                       node_degree=None,
+                       draws: Optional[EnhanceDraws] = None):
+        """[B, hid (+ 12)]: the motif hiddens summed over the walks, each
+        weighted by its importance, beside the summed one-hot motif
+        classes. ``node_degree`` [N] (ones when None) weighs the walks'
+        nodes; ``draws`` the motif attention's dropout (training) or
+        None."""
+        h = self._motif_hidden(feats, walks, cut_time, draws)
         ww = compute_walk_importance(walks.ts, walks.nodes, cut_time,
                                      node_degree)
         h = (h * ww[..., None]).sum(dim=1)
@@ -341,3 +365,19 @@ class TempME(nn.Module):
     def _affinity(self, x1, x2):
         x = torch.cat([x1, x2], dim=-1)
         return self.aff_fc2(torch.relu(self.aff_fc1(x)))
+
+    def enhance_predict_agg(self, feats: Features, cut_time, walks_src,
+                            walks_tgt, walks_bgd, src_gat, tgt_gat, bgd_gat,
+                            node_degree=None, draws=None):
+        """(pos [B, 1], neg [B, 1]) logits of the pairs (src, tgt) and
+        (src, bgd) from each side's walk embedding beside the base's node
+        embedding of the side (``*_gat`` [B, node_dim]). ``draws``: per
+        side an ``EnhanceDraws`` (training), or None."""
+        d = draws or (None, None, None)
+        src, tgt, bgd = (
+            torch.cat([self.walk_embedding(feats, w, cut_time, node_degree,
+                                           u), gat], dim=-1)
+            for w, gat, u in ((walks_src, src_gat, d[0]),
+                              (walks_tgt, tgt_gat, d[1]),
+                              (walks_bgd, bgd_gat, d[2])))
+        return self._affinity(src, tgt), self._affinity(src, bgd)

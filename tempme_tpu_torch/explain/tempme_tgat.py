@@ -16,12 +16,19 @@ The encoder layers follow flax's ``MultiHeadDotProductAttention`` and
 model width rounded up to a multiple of the heads over the heads (86 at
 width 688), q scaled by ``1 / sqrt(head_dim)``, dropout on the attention
 weights with one mask for every batch row and head, ``out`` mapping the
-heads back to the width. ``walk_enc_cat`` and ``aff_fc`` are built so that
-every parameter of a JAX checkpoint has a home (``utils/convert.py``);
-their methods belong to enhance, which is not ported.
+heads back to the width.
 
-Dropout uniforms are drawn by the caller and passed in (``TGATImpDraws``,
-one side's, of the shapes ``draw_shapes`` gives; None in eval); the Beta
+The enhance form (``train/enhance_main.py``) reads the explainer as a
+predictor: ``walk_embedding`` encodes each walk as above, appends its
+one-hot motif class, runs ``walk_enc_cat`` (the encoder layer at width
+``out_dim + 12``, its heads' width rounded up: 56 / 8 = 7 at the
+defaults) across the walks and weighs each walk by
+``compute_walk_importance``; ``_affinity`` joins two sides along the walk
+axis, scores each walk with ``aff_fc`` and sums the scores.
+
+Dropout uniforms are drawn by the caller and passed in (``TGATImpDraws``
+or, in the enhance form, ``TGATEnhanceDraws``, one side's, of the shapes
+``draw_shapes`` or ``enhance_draw_shapes`` gives; None in eval); the Beta
 sample's gamma draws come from a generator or are passed in, as in
 ``explain/tempme.py``. Layers start from the JAX
 package's initialisers, on the CPU from ``seed``, then move to ``device``.
@@ -41,7 +48,7 @@ from ..ops.layers import dense
 from ..ops.sampler import Subgraph
 from ..ops.segment import walk_to_edge_max
 from ..utils.devices import resolve_device
-from .tempme import WalkInputs, beta_sample
+from .tempme import WalkInputs, beta_sample, compute_walk_importance
 
 
 def _round_up(x: int, m: int) -> int:
@@ -68,6 +75,27 @@ class TGATImpDraws(NamedTuple):
 
 
 _NO_DRAWS = TGATImpDraws(*(None,) * len(TGATImpDraws._fields))  # eval
+
+
+class TGATEnhanceDraws(NamedTuple):
+    """Dropout uniforms of one side's walk embedding (the enhance form):
+    the event encoder's and the walk MLP's, as in ``TGATImpDraws``, then
+    ``walk_enc_cat``'s attention mask (shared by the batch rows and
+    heads), its two residual branches and its feed-forward hidden."""
+    ev_attn: torch.Tensor      # [1, 1, 3, 3]
+    ev_res1: torch.Tensor      # [B * W, 3, D]
+    ev_ff: torch.Tensor        # [B * W, 3, 32 * out]
+    ev_res2: torch.Tensor      # [B * W, 3, D]
+    mlp_h: torch.Tensor        # [B, W, hid]
+    mlp_out: torch.Tensor      # [B, W, out]
+    cat_attn: torch.Tensor     # [1, 1, W, W]
+    cat_res1: torch.Tensor     # [B, W, out + 12]
+    cat_ff: torch.Tensor       # [B, W, 32 * out]
+    cat_res2: torch.Tensor     # [B, W, out + 12]
+
+
+_NO_ENHANCE_DRAWS = TGATEnhanceDraws(
+    *(None,) * len(TGATEnhanceDraws._fields))
 
 
 def _dropout(x, u, rate: float):
@@ -134,6 +162,8 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TempMETGAT(nn.Module):
+    enhance_draws_type = TGATEnhanceDraws
+
     def __init__(self, node_dim: int, edge_dim: int, out_dim: int = 40,
                  hid_dim: int = 64, n_head: int = 8, dropout: float = 0.1,
                  if_attn: bool = True, device=None, seed: int = 0):
@@ -234,3 +264,47 @@ class TempMETGAT(nn.Module):
             gamma if gamma is None or isinstance(gamma, torch.Generator)
             else gamma[i]) for i in range(3)]
         return [torch.cat([s[h] for s in per_side], dim=0) for h in (0, 1)]
+
+    # -- enhance form ------------------------------------------------
+    def enhance_draw_shapes(self, batch_size: int, n_walks: int):
+        """The shapes of one side's ``TGATEnhanceDraws``."""
+        b, w, cat = batch_size, n_walks, self.out_dim + 12
+        return self.draw_shapes(b, w)[:6] + (
+            (1, 1, w, w), (b, w, cat), (b, w, 32 * self.out_dim), (b, w, cat))
+
+    def walk_embedding(self, feats: Features, walks: WalkInputs, cut_time,
+                       node_degree=None,
+                       draws: Optional[TGATEnhanceDraws] = None):
+        """[B, W, out + 12]: each walk's encoding beside its one-hot motif
+        class, attended across the walks by ``walk_enc_cat``, times the
+        walk's importance (``node_degree`` [N], ones when None). ``draws``
+        the dropout uniforms (training) or None."""
+        u = _NO_ENHANCE_DRAWS if draws is None else draws
+        g = self.attention_encode(self._combined_features(feats, walks), u)
+        g = torch.cat([g, nn.functional.one_hot(walks.cat.long(), 12)
+                       .to(g.dtype)], dim=-1)
+        if self.if_attn:
+            g = self.walk_enc_cat(g, (u.cat_attn, u.cat_res1, u.cat_ff,
+                                      u.cat_res2))
+        ww = compute_walk_importance(walks.ts, walks.nodes, cut_time,
+                                     node_degree)
+        return g * ww[..., None]
+
+    def _affinity(self, x1, x2):
+        """Two sides' [B, W, F] walk embeddings joined along the walk axis,
+        each walk scored by ``aff_fc``, the 2W scores summed: [B, 1]."""
+        z = self.aff_fc(torch.cat([x1, x2], dim=1)).squeeze(-1)
+        return z.sum(dim=-1, keepdim=True)
+
+    def enhance_predict_agg(self, feats: Features, cut_time, walks_src,
+                            walks_tgt, walks_bgd, node_degree=None,
+                            draws=None):
+        """(pos [B, 1], neg [B, 1]) logits of the pairs (src, tgt) and
+        (src, bgd) from the walks alone. ``draws``: per side a
+        ``TGATEnhanceDraws`` (training), or None."""
+        d = draws or (None, None, None)
+        src, tgt, bgd = (self.walk_embedding(feats, w, cut_time, node_degree,
+                                             u)
+                         for w, u in ((walks_src, d[0]), (walks_tgt, d[1]),
+                                      (walks_bgd, d[2])))
+        return self._affinity(src, tgt), self._affinity(src, bgd)

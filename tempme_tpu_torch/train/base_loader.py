@@ -8,6 +8,9 @@ layers checkpoints its blocks (``remat``), as the JAX loader builds it. A
 GraphMixer gets ``meta["n_layer"]`` mixer blocks and ``meta["n_degree"]``
 tokens. Every load is strict: a checkpoint whose blocks differ from its
 meta raises (flax's reader drops the parameters its template lacks).
+The explainer reads a frozen base; the enhance stage trains the base it
+loads (``trainable=True``). Neither form holds a dropout module: a model's
+training form is the dropout draws its caller passes.
 """
 from __future__ import annotations
 
@@ -30,11 +33,13 @@ class LoadedBase(NamedTuple):
 
 
 def load_base(ckpt_path: str, device=None,
-              compute_dtype: torch.dtype = torch.bfloat16) -> LoadedBase:
+              compute_dtype: torch.dtype = torch.bfloat16,
+              trainable: bool = False) -> LoadedBase:
     """The base of ``ckpt_path`` on ``device`` (CUDA unless
-    ``device="cpu"``), frozen (no parameter requires a gradient) and in
-    eval form. ``compute_dtype`` is the attention projections' type of a
-    TGN or a TGAT, bf16 as in the JAX package (a GraphMixer is float32)."""
+    ``device="cpu"``): frozen (no parameter requires a gradient, eval
+    form), or with ``trainable`` every parameter requiring one.
+    ``compute_dtype`` is the attention projections' type of a TGN or a
+    TGAT, bf16 as in the JAX package (a GraphMixer is float32)."""
     dev = resolve_device(device)
     blob, meta = load_checkpoint(ckpt_path, map_location="cpu")
     base_type = meta["base_type"]
@@ -44,7 +49,7 @@ def load_base(ckpt_path: str, device=None,
                            num_tokens=meta["n_degree"],
                            num_layers=meta["n_layer"],
                            dropout=meta["drop_out"], device=dev)
-        return _frozen(base_type, model, blob, meta)
+        return _loaded(base_type, model, blob, meta, trainable)
     if base_type == "tgat":
         model = TGAT(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
                      num_layers=meta["n_layer"], n_head=meta["n_head"],
@@ -54,7 +59,7 @@ def load_base(ckpt_path: str, device=None,
                      use_time=meta.get("use_time", "time"),
                      remat=meta["n_layer"] >= 3, device=dev,
                      compute_dtype=compute_dtype)
-        return _frozen(base_type, model, blob, meta)
+        return _loaded(base_type, model, blob, meta, trainable)
     if base_type != "tgn":
         raise ValueError(f"unknown base_type {base_type}")
     model = TGN(node_dim=meta["node_dim"], edge_dim=meta["edge_dim"],
@@ -68,11 +73,12 @@ def load_base(ckpt_path: str, device=None,
                 device=dev, compute_dtype=compute_dtype)
     memory = TGNMemoryState(**{k: v.to(dev)
                                for k, v in blob["memory"].items()})
-    return _frozen(base_type, model, blob, meta, memory)
+    return _loaded(base_type, model, blob, meta, trainable, memory)
 
 
-def _frozen(base_type, model, blob, meta, memory=None) -> LoadedBase:
+def _loaded(base_type, model, blob, meta, trainable,
+            memory=None) -> LoadedBase:
     model.load_state_dict(blob["params"], strict=True)
-    model.requires_grad_(False)
-    model.eval()
+    model.requires_grad_(trainable)
+    model.train(trainable)
     return LoadedBase(base_type, model, memory, meta)

@@ -5,7 +5,8 @@ Port of ``tempme_tpu/train/loops.py:22-161,213-238``, with the
 stateless bases' train and eval steps (``make_base_train_step``,
 ``make_base_eval_step``: TGAT and GraphMixer; the draws are injected as in
 the TGN step). Random draws are tensors (``SupportDraws``, ``AttnDraws``,
-``MixerDraws``): ``draw_support`` and ``draw_dropout`` make them from a
+``MixerDraws``, and ``EnhanceDraws`` for one step of the enhance stage):
+``draw_support``, ``draw_dropout`` and ``draw_enhance`` make them from a
 ``torch.Generator``, and a test can build them from ``jax.random`` in the
 JAX package's split order instead.
 """
@@ -59,6 +60,45 @@ def draw_dropout(generator: torch.Generator, shapes, device,
     return tuple(draws_type(*(torch.rand(s, generator=generator,
                                          device=device) for s in shapes_i))
                  for shapes_i in shapes)
+
+
+class EnhanceDraws(NamedTuple):
+    """Every random number one enhance step consumes: the negatives and
+    the three 2-hop supports, per side the walks' uniforms, then in
+    training the base's dropout (per embedding call, src, tgt, bgd; None
+    for a TGAT, whose enhance reads no base, or at dropout 0) and per side
+    the predictor's (``EnhanceDraws`` of ``explain/tempme.py`` or
+    ``TGATEnhanceDraws``; None at dropout 0). Its ``support`` and
+    ``walks`` are what ``temp_exp_main.sample_explainer_inputs`` reads."""
+    support: SupportDraws
+    walks: tuple                       # per side S.WalkDraws
+    base: Optional[tuple] = None
+    pred: Optional[tuple] = None
+
+
+def draw_enhance(generator: torch.Generator, batch_size: int, n: int,
+                 n_walk_cont: int, num_dst: int, device, base=None,
+                 predictor=None) -> EnhanceDraws:
+    """One enhance step's draws from ``generator``, in a fixed order: the
+    support (2 hops, every base), the walks per side, then the dropout of
+    ``base`` (a TGN or a GraphMixer; None: no base draws) and of
+    ``predictor`` (None: no predictor draws, as in eval), each only where
+    its rate is above 0."""
+    support = draw_support(generator, batch_size, 2, n, num_dst, device)
+    walks = tuple(S.draw_walks(generator, batch_size, n, n_walk_cont, device)
+                  for _ in range(3))
+    base_u = pred_u = None
+    if base is not None and base.dropout > 0.0:
+        shapes = base.dropout_shapes(batch_size, n)
+        base_u = tuple(draw_dropout(generator, shapes, device,
+                                    getattr(base, "draws_type", AttnDraws))
+                       for _ in range(3))
+    if predictor is not None and predictor.dropout > 0.0:
+        shapes = predictor.enhance_draw_shapes(batch_size, n * n_walk_cont)
+        pred_u = tuple(predictor.enhance_draws_type(
+            *(torch.rand(s, generator=generator, device=device)
+              for s in shapes)) for _ in range(3))
+    return EnhanceDraws(support, walks, base_u, pred_u)
 
 
 class StepDraws(NamedTuple):

@@ -33,6 +33,14 @@ flax or a msgpack package. The rules:
   hn)^T`` and ``bias_hn = b_hn`` (the JAX call is
   ``memory_cell(carry=memory, inputs=msgs)``, the port's
   ``memory_updater(msgs, memory)``).
+
+An enhance checkpoint of the JAX package holds the predictor and the base
+it trained, ``{"predictor": {"params"}, "base": {"params"}}``, for a TGN
+or a GraphMixer, and the ``TempMETGAT`` predictor alone, ``{"params"}``,
+for a TGAT; ``enhance_state_dicts`` splits it. Its meta gives the
+predictor's ``out_dim`` and ``hid_dim``; a GraphMixer base's block count
+is the tree's own (``mixer_blocks``), which may be fewer than the base
+checkpoint's meta says (the JAX loader drops blocks its meta lacks).
 """
 from __future__ import annotations
 
@@ -100,6 +108,20 @@ def flax_to_state_dict(params: dict) -> dict:
     out: dict = {}
     _walk(params, "", out)
     return out
+
+
+def enhance_state_dicts(tree: dict) -> dict:
+    """A JAX enhance checkpoint's tree -> ``{"predictor": state_dict}``,
+    plus ``"base"`` for a TGN or a GraphMixer."""
+    if set(tree) == {"predictor", "base"}:
+        return {k: flax_to_state_dict(tree[k]) for k in ("predictor", "base")}
+    return {"predictor": flax_to_state_dict(tree)}
+
+
+def mixer_blocks(state_dict: dict) -> int:
+    """The number of mixer blocks a GraphMixer ``state_dict`` holds."""
+    return len({k.split(".")[1] for k in state_dict
+                if k.startswith("mixers.")})
 
 
 class _Reader:
