@@ -68,7 +68,24 @@ script
    ``--eval_only`` and holds one explainer train step and one eval step's
    sweep against the CPU; traces 20 GraphMixer and 20 explainer train
    steps;
-10. prints its run time, one JSON line of kernel numbers, the card again,
+10. runs enhance on the same cut for a TGN trained there, the GraphMixer
+   of step 9 (2 epochs, the second resumed from the first's state) and
+   the TGAT of step 8, holds one enhance step of each against the CPU and
+   traces the TGN's;
+11. builds the offline walk cache of the TGN's cut through ``python -m
+   tempme_tpu_torch.cli preprocess`` (train and test, batch 128, 6
+   ``sample_rows``, 3 ``sample_union`` and 3 ``sample_masked`` launches a
+   batch; the kernels are also held against their plain versions at these
+   shapes in step 3), checks the files, the ids, the classes, the
+   negatives, and one batch built on the card against the CPU; trains the
+   explainer one epoch from it (``cli explain --use_cache``) on the TGN
+   of step 10 with no sampling launch on its train steps, reuses the
+   files in a second call, and holds one cached train step against the
+   CPU;
+12. runs ``cli pipeline`` (learn-base -> explain -> enhance) for a
+   GraphMixer on the cut, one epoch a stage, in a scratch working
+   directory, and ``cli validate``;
+13. prints its run time, one JSON line of kernel numbers, the card again,
    and the last line ``{"ok": true, "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
@@ -1270,42 +1287,29 @@ def explainer_steps_on(dev, ds, ckpt_dir, compute_dtype, base_type="tgn",
     return train, ev
 
 
-def check_explainer_against_cpu(ds, ckpt_dir, dev, base_type="tgn",
-                                data=DATA_NAME, logit_atol=1e-5):
-    """One explainer train step (batch 100, dropout 0.1, Beta sampling) on
-    the card and on the CPU from the same checkpoints and the same draws
-    (the gamma draws injected), the base at float32: loss rtol 1e-4;
-    gradients rtol 1e-3, atol 1e-4 of each tensor's largest; params after
-    Adam rtol 1e-5, atol 1e-6 where the gradient is settled, within lr
-    elsewhere. Settled: at least 1e-4 of its tensor's largest and at least
-    1e-5 (a thousand times Adam's eps: there the first step,
-    lr * g / (|g| + eps), moves by under 1e-9 for a gradient error of
-    1e-3; the explainer's smallest tensors' gradients are about 1e-4).
-    Then one eval step: the explained logits and, from the same keep
-    masks, the 16-ratio sweep's logits rtol 2e-4, atol ``logit_atol`` (a
-    GraphMixer's keep masks over its n hop-0 edges)."""
+def explainer_draws(step, gen, sample=True):
+    """A train step's draws at batch 100 from the CPU generator ``gen``,
+    the Beta sample's gamma draws among them (``sample`` False: no support
+    or walk draws, the inputs come from the walk cache)."""
     import torch
-    from tempme_tpu_torch.train import loops
-    from tempme_tpu_torch.train import temp_exp_main as X
-    cpu = torch.device("cpu")
-    tc, ec = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32, base_type,
-                                data)
-    tg, eg = explainer_steps_on(dev, ds, ckpt_dir, torch.float32, base_type,
-                                data)
-    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
-        ds.train, EXPLAIN_BATCH, True, SEED + 1, cpu)))
-    gen = torch.Generator(device=cpu)
-    gen.manual_seed(SEED + 5)
-    draws = tc.draw(gen, EXPLAIN_BATCH)
     n, b = N_DEGREE, EXPLAIN_BATCH
-    gamma = tuple(tuple(torch._standard_gamma(torch.full(shape, 2.0),
-                                              generator=gen)
-                        for shape in ((b, n), (b, n), (b, n * n),
-                                      (b, n * n)))
-                  for _ in range(3))
-    draws = draws._replace(gamma=gamma)
-    aux_c = tc(batch, draws)
-    aux_g = tg(to_device(batch, dev), to_device(draws, dev))
+    draws = step.draw(gen, b, sample=sample)
+    return draws._replace(gamma=tuple(
+        tuple(torch._standard_gamma(torch.full(shape, 2.0), generator=gen)
+              for shape in ((b, n), (b, n), (b, n * n), (b, n * n)))
+        for _ in range(3)))
+
+
+def compare_explainer_train_steps(tc, tg, batch, draws, dev, inputs=None):
+    """The explainer train steps ``tc`` (CPU) and ``tg`` (card) on the same
+    batch, draws and, when given, cached ``inputs`` (on the CPU): loss rtol
+    1e-4; gradients rtol 1e-3, atol 1e-4 of each tensor's largest; params
+    after Adam rtol 1e-5, atol 1e-6 where the gradient is settled, within
+    lr elsewhere (``check_explainer_against_cpu``)."""
+    import torch
+    aux_c = tc(batch, draws, inputs)
+    aux_g = tg(to_device(batch, dev), to_device(draws, dev),
+               to_device(inputs, dev))
     torch.cuda.synchronize()
     loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
     if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
@@ -1341,6 +1345,36 @@ def check_explainer_against_cpu(ds, ckpt_dir, dev, base_type="tgn",
         f"gradient error {worst_g:.3e} of its tensor's largest; worst settled "
         f"param error after Adam {worst_p:.3e} ({unsettled} round-off-"
         f"gradient entries held to lr)")
+
+
+def check_explainer_against_cpu(ds, ckpt_dir, dev, base_type="tgn",
+                                data=DATA_NAME, logit_atol=1e-5):
+    """One explainer train step (batch 100, dropout 0.1, Beta sampling) on
+    the card and on the CPU from the same checkpoints and the same draws
+    (the gamma draws injected), the base at float32: loss rtol 1e-4;
+    gradients rtol 1e-3, atol 1e-4 of each tensor's largest; params after
+    Adam rtol 1e-5, atol 1e-6 where the gradient is settled, within lr
+    elsewhere. Settled: at least 1e-4 of its tensor's largest and at least
+    1e-5 (a thousand times Adam's eps: there the first step,
+    lr * g / (|g| + eps), moves by under 1e-9 for a gradient error of
+    1e-3; the explainer's smallest tensors' gradients are about 1e-4).
+    Then one eval step: the explained logits and, from the same keep
+    masks, the 16-ratio sweep's logits rtol 2e-4, atol ``logit_atol`` (a
+    GraphMixer's keep masks over its n hop-0 edges)."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.train import temp_exp_main as X
+    cpu = torch.device("cpu")
+    tc, ec = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32, base_type,
+                                data)
+    tg, eg = explainer_steps_on(dev, ds, ckpt_dir, torch.float32, base_type,
+                                data)
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, EXPLAIN_BATCH, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 5)
+    compare_explainer_train_steps(tc, tg, batch, explainer_draws(tc, gen),
+                                  dev)
 
     ebatch = next(loops.iter_batches(ds.test, EXPLAIN_BATCH, False, cpu))
     edraws = ec.draw(gen, EXPLAIN_BATCH)
@@ -2851,6 +2885,412 @@ def enhance_phases(work, ds_dir, ds30, dev, torch):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# The pipeline as users start it (``python -m tempme_tpu_torch.cli``): the
+# offline walk cache of the TGN's cut ([cache]), the explainer trained from
+# it ([cache-explain]) on the TGN of [enhance-tgn], and ``pipeline``
+# (learn-base -> explain -> enhance) with ``validate`` ([pipeline])
+CACHE_BATCH = 128                    # preprocess's default --bs
+CACHE_PER_BATCH = dict(sample_rows=6, sample_union=3, sample_masked=3)
+_NO_SAMPLING = dict(sample_rows=0, sample_union=0, sample_masked=0)
+# the cached explainer: train steps and test's eval steps read the cache,
+# val's eval steps and the null model's batches sample online
+CACHE_EXPLAIN_PER_STEP = {
+    "train": dict(EXPLAIN_PER_STEP["train"], **_NO_SAMPLING),
+    "eval": EXPLAIN_PER_STEP["eval"],
+    "cached_eval": dict(EXPLAIN_PER_STEP["eval"], **_NO_SAMPLING),
+    "null": EXPLAIN_PER_STEP["null"]}
+CACHE_SHAPES = ("cache hop0 Q=128", "cache hop1 Q=2560",
+                "cache sample_union Q=2560", "cache sample_masked Q=7680")
+
+
+def check_cache_kernels(ds, g, torch, dev):
+    """The three sampling kernels against their plain versions, bitwise, at
+    the shapes ``build_walk_cache`` gives them (batch 128, 20 neighbours,
+    3 continuations) on its inputs for the batch in the middle of the train
+    split (side src: hop 0 cut at the batch's edges, hop 1, the walks'
+    second and third events), with their times and bounds. Returns the
+    rows."""
+    import numpy as np
+    from tempme_tpu_torch.data import cache as C
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.ops import sampler as S
+    from tempme_tpu_torch.ops.kernels.sample_masked import (
+        sample_masked, sample_masked_plain)
+    from tempme_tpu_torch.ops.kernels.sample_rows import (sample_rows,
+                                                          sample_rows_plain)
+    from tempme_tpu_torch.ops.kernels.sample_union import (
+        sample_union, sample_union_plain)
+    from tempme_tpu_torch.tools.walk_ab import recording
+    b, n = CACHE_BATCH, N_DEGREE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+    mid = len(ds.train) // 2
+    sl = slice(mid, mid + b)
+    fake = RandEdgeSampler([ds.train.src], [ds.train.dst], seed=SEED).sample(
+        b)[1]
+    cols = [torch.from_numpy(np.ascontiguousarray(x[sl])).to(dev)
+            for x in (ds.train.src, ds.train.dst)]
+    with recording(S, ("sample_rows", "sample_union", "sample_masked")) \
+            as rec:
+        C.sample_cache_batch(
+            g, *cols, torch.from_numpy(fake.astype(np.int32)).to(dev),
+            torch.from_numpy(ds.train.ts[sl]).to(dev),
+            torch.from_numpy(ds.train.e_idx[sl]).to(dev), n, 3,
+            C.draw_cache_batch(gen, b, n, 3, dev))
+    hop0, hop1 = rec["sample_rows"][:2]
+    union, masked = rec["sample_union"][0], rec["sample_masked"][0]
+    rows = {}
+    for name, kernel, plain, args in (
+            (CACHE_SHAPES[0], sample_rows, sample_rows_plain, hop0),
+            (CACHE_SHAPES[1], sample_rows, sample_rows_plain, hop1),
+            (CACHE_SHAPES[2], sample_union, sample_union_plain, union),
+            (CACHE_SHAPES[3], sample_masked, sample_masked_plain, masked)):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version")
+        if not (got[-1] if kernel is sample_masked else got[1] > 0).any():
+            raise AssertionError(f"{name} sampled nothing")
+        gg, a = args[0], args[1:]
+        if kernel is sample_rows:
+            nbytes = sample_rows_bytes(gg, a[0], a[1], a[2], a[3])
+            ops, rate = a[2].shape[0] * n * (2 * n + 4), H100_INT32_OPS_PER_S
+        elif kernel is sample_union:
+            nbytes, ops, rate = union_bytes(gg, *a[:3], a[3].shape[1]), 0, \
+                H100_F32_OPS_PER_S
+        else:
+            nbytes, ops, rate = masked_bytes(gg, a[0], a[1], a[2], a[6],
+                                             got[4]), 0, H100_F32_OPS_PER_S
+        ms, host = time_ms(lambda: kernel(*args))
+        plain_ms, plain_host = time_ms(lambda: plain(*args))
+        least, by = bound(nbytes, ops, rate)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=least,
+                          bound_by=by, library_ms=None)
+        say(f"  {kernel.__name__} {name.split()[-1]}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {least:.5f} ms ({by}), bitwise "
+            f"equal; eager calls from the host {host:.4f} / "
+            f"{plain_host:.4f} ms")
+    return rows
+
+
+def check_cache_files(report, ds, n_batches):
+    """Both splits' files: the keys, shapes and dtypes of the JAX
+    package's format, ids in range, classes in [0, 12), the class
+    distribution summing to 1, and ``dst_fake`` equal to the host
+    sampler's draws (seeded from --seed, ``CACHE_BATCH`` a batch)."""
+    import numpy as np
+    from tempme_tpu_torch.data.cache import SIDES, load_cache
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    n, w = N_DEGREE, N_DEGREE * 3
+    nn_, ne = ds.full.num_nodes, ds.full.num_edges
+    caches = {}
+    for mode, events, lists in (
+            ("train", ds.train, ([ds.train.src], [ds.train.dst])),
+            ("test", ds.test, ([ds.train.src, ds.val.src, ds.test.src],
+                               [ds.train.dst, ds.val.dst, ds.test.dst]))):
+        cache = load_cache(report[mode]["path"])
+        k = len(events)
+        want = {"dst_fake": ((k,), np.int32),
+                "class_distribution": ((12,), np.float32)}
+        for s in SIDES:
+            want.update({
+                f"subgraph_{s}_0": ((k, 3 * n), np.float32),
+                f"subgraph_{s}_1": ((k, 3 * n * n), np.float32),
+                f"walks_{s}_nodes": ((k, w, 6), np.int32),
+                f"walks_{s}_eids": ((k, w, 3), np.int32),
+                f"walks_{s}_ts": ((k, w, 3), np.float32),
+                f"walks_{s}_cat": ((k, w), np.int32),
+                f"walks_{s}_marginal": ((k, w), np.float32),
+                f"edge_{s}": ((k, w, 3, 3), np.float32)})
+        got = {key: (v.shape, v.dtype) for key, v in cache.items()}
+        if got != {key: (sh, np.dtype(dt)) for key, (sh, dt) in
+                   want.items()}:
+            raise AssertionError(f"{mode} cache: {got}")
+        for s in SIDES:
+            for h, width in ((0, n), (1, n * n)):
+                sub = cache[f"subgraph_{s}_{h}"]
+                ids = sub[:, :2 * width]
+                if not ((ids == np.round(ids)).all() and ids.min() >= 0
+                        and sub[:, :width].max() < nn_
+                        and sub[:, width:2 * width].max() < ne):
+                    raise AssertionError(f"{mode} subgraph_{s}_{h}: ids")
+            if not (0 <= cache[f"walks_{s}_nodes"].min()
+                    and cache[f"walks_{s}_nodes"].max() < nn_
+                    and 0 <= cache[f"walks_{s}_eids"].min()
+                    and cache[f"walks_{s}_eids"].max() < ne):
+                raise AssertionError(f"{mode} walks_{s}: ids out of range")
+            cat = cache[f"walks_{s}_cat"]
+            if not (cat.min() >= 0 and cat.max() < 12):
+                raise AssertionError(f"{mode} walks_{s}_cat outside [0, 12)")
+        dist = cache["class_distribution"]
+        if abs(float(dist.sum()) - 1.0) > 1e-5:
+            raise AssertionError(f"{mode} class distribution {dist}")
+        sampler = RandEdgeSampler(*lists, seed=SEED)
+        fake = np.concatenate([sampler.sample(CACHE_BATCH)[1]
+                               for _ in range(n_batches[mode])])[:k]
+        if not np.array_equal(cache["dst_fake"], fake):
+            raise AssertionError(f"{mode} dst_fake is not the sampler's")
+        caches[mode] = cache
+    return caches
+
+
+def check_cache_batch_against_cpu(ds, dev, torch):
+    """The first train batch's cache arrays built on the card and on the
+    CPU from the same draws and negatives: equal array by array."""
+    import numpy as np
+    from tempme_tpu_torch.data import cache as C
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 33)
+    draws = (C.draw_cache_batch(gen, CACHE_BATCH, N_DEGREE, 3, "cpu"),)
+    events = ds.train.select(np.arange(len(ds.train)) < CACHE_BATCH)
+    cpu, card = (C.build_walk_cache(
+        build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=d), events,
+        RandEdgeSampler([ds.train.src], [ds.train.dst], seed=SEED),
+        N_DEGREE, batch_size=CACHE_BATCH, draws=to_device(draws, d))
+        for d in (torch.device("cpu"), dev))
+    for key, v in cpu.items():
+        if not np.array_equal(card[key], v):
+            raise AssertionError(f"cache batch: {key} differs card/CPU")
+    say(f"  one batch of {CACHE_BATCH} built on the card and on the CPU "
+        f"from the same draws: {len(cpu)} arrays equal")
+
+
+def cache_explain_argv(ds_dir, ckpt_dir, cache_dir, out, *extra):
+    return ["explain", "--use_cache", "--cache_dir", cache_dir,
+            *explain_argv(ds_dir, ckpt_dir, out, data=ENHANCE_TGN_DATA),
+            *extra]
+
+
+def cache_phases(work, ds_dir, dev, torch, online_ms):
+    """[cache] and [cache-explain] on ``ENHANCE_TGN_DATA`` and the TGN
+    [enhance-tgn] trained there (``online_ms``: the online TGN explainer's
+    ms a step, [explain]). Returns (launches, numbers)."""
+    import math
+    import shutil
+    from tempme_tpu_torch import cli
+    from tempme_tpu_torch.data.cache import cache_to_inputs
+    from tempme_tpu_torch.data.events import (load_dataset, shuffled_events,
+                                              split_events)
+    from tempme_tpu_torch.train import loops
+    ds = load_dataset(ENHANCE_TGN_DATA, ds_dir)
+    cache_dir = os.path.join(work, "cache")
+    kernels = explain_kernels()
+    n_batches = {m: math.ceil(len(e) / CACHE_BATCH)
+                 for m, e in (("train", ds.train), ("test", ds.test))}
+    say(f"[cache] cli preprocess --data {ENHANCE_TGN_DATA}: the walk cache "
+        f"of the train split ({len(ds.train)} events, train graph, "
+        f"train-only negatives) and the test split ({len(ds.test)}, full "
+        f"graph), batch {CACHE_BATCH}, {N_DEGREE} neighbours, 3 walk "
+        f"continuations, negatives seeded from --seed {SEED}")
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        report = cli.main(["preprocess", "--data", ENHANCE_TGN_DATA,
+                           "--data_dir", ds_dir, "--out_dir", cache_dir,
+                           "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    launches = {"cache": {k: f.launches for k, f in kernels.items()}}
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    batches = sum(n_batches.values())
+    check_launches(launches["cache"],
+                   {k: CACHE_PER_BATCH.get(k, 0) * batches for k in kernels})
+    say(f"  launches {launches['cache']} for {batches} batches "
+        f"({CACHE_PER_BATCH} a batch); main() {wall:.2f} s")
+    numbers = {"cache": {f"{m}_{k}": v for m, r in report.items()
+                         for k, v in r.items() if k != "path"}}
+    for m, r in report.items():
+        numbers["cache"][f"{m}_events_per_s"] = r["events"] / r["build_s"]
+        say(f"  {m}: {r['events']} events built in {r['build_s']:.2f} s "
+            f"({r['events'] / r['build_s']:.1f} events/s), the .npz "
+            f"({r['bytes'] / 2 ** 20:.1f} MiB, {r['bytes'] / r['events']:.0f} "
+            f"bytes an event) written in {r['write_s']:.2f} s")
+    caches = check_cache_files(report, ds, n_batches)
+    check_cache_batch_against_cpu(ds, dev, torch)
+    mtimes = {p: os.stat(p).st_mtime_ns for p in glob.glob(
+        os.path.join(cache_dir, "*.npz"))}
+
+    base_ckpt = os.path.join(work, "enhance_tgn_base", "params")
+    ckpt_dir = os.path.join(work, "cache_explain", "params")
+    shutil.copytree(os.path.join(base_ckpt, "tgnn"),
+                    os.path.join(ckpt_dir, "tgnn"))
+    out = os.path.join(work, "cache_explain")
+    say(f"[cache-explain] cli explain --use_cache on the TGN of "
+        f"[enhance-tgn] (bf16 projections): one epoch at the explainer's "
+        f"defaults (batch {EXPLAIN_BATCH}, 60 walks a side, out_dim 40, "
+        f"hid_dim 64, dropout {DROPOUT}, Adam lr {LR}), train and test from "
+        f"the cache of [cache], val online")
+    steps = {"train": len(ds.train) // EXPLAIN_BATCH,
+             "eval": math.ceil(len(ds.val) / EXPLAIN_BATCH),
+             "cached_eval": math.ceil(len(ds.test) / EXPLAIN_BATCH),
+             "null": min(50, len(split_events(
+                 shuffled_events(ds.full, seed=SEED), ds.node_feat,
+                 ds.edge_feat).test) // 10)}
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        best = cli.main(cache_explain_argv(ds_dir, ckpt_dir, cache_dir, out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["cache-explain"] = {k: f.launches for k, f in kernels.items()}
+    for line in printed.getvalue().splitlines():
+        say(f"    | {line}")
+    if "building walk cache" in printed.getvalue():
+        raise AssertionError("--use_cache rebuilt the cache of [cache]")
+    check_launches(launches["cache-explain"], {
+        k: sum(CACHE_EXPLAIN_PER_STEP[p][k] * c for p, c in steps.items())
+        for k in kernels})
+    say(f"  launches {launches['cache-explain']} for {steps}; per step "
+        f"{CACHE_EXPLAIN_PER_STEP}")
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != steps["train"] or not all(map(math.isfinite, losses)):
+        raise AssertionError("a cached explainer loss is missing or not "
+                             "finite")
+    eps = tags["Train/events_per_s"][0]
+    nums = dict(train_ms_per_step=EXPLAIN_BATCH / eps * 1e3,
+                events_per_s=eps,
+                cache_slice_ms_per_step=tags[
+                    "Train/cache_slice_ms_per_step"][0],
+                online_train_ms_per_step=online_ms,
+                loss_first=losses[0], loss_last=losses[-1],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                wall_s=wall, best_val=best)
+    for split in ("Val", "Test"):
+        for key in ("aps", "auc", "acc", "fid_prob", "fid_logit", "r_aps",
+                    "r_auc", "r_acc", "r_prob", "r_logit"):
+            nums[f"{split.lower()}_{key}"] = tags[f"{split}/{key}"][0]
+    for key in ("val_aps", "test_aps", "val_r_aps", "test_r_aps", "best_val"):
+        if not 0.0 <= nums[key] <= 1.0:
+            raise AssertionError(f"{key} {nums[key]} outside [0, 1]")
+    for key in ("test_fid_prob", "test_fid_logit", "test_r_prob",
+                "test_r_logit"):
+        if not math.isfinite(nums[key]):
+            raise AssertionError(f"{key} is not finite")
+    numbers["cache-explain"] = nums
+    say(f"  {steps['train']} steps: {nums['train_ms_per_step']:.3f} ms/step "
+        f"from the cache (of which host slicing and copying "
+        f"{nums['cache_slice_ms_per_step']:.3f}), online [explain] "
+        f"{online_ms:.3f} ms/step; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"val AP {nums['val_aps']:.6f}, test AP {nums['test_aps']:.6f}, test "
+        f"fid_prob {nums['test_fid_prob']:.6f}, fid_logit "
+        f"{nums['test_fid_logit']:.6f}; 16-ratio sweep on test: APS "
+        f"{nums['test_r_aps']:.6f}, AUC {nums['test_r_auc']:.6f}, ACC "
+        f"{nums['test_r_acc']:.6f}, prob {nums['test_r_prob']:.6f}, logit "
+        f"{nums['test_r_logit']:.6f}; peak {nums['peak_gib']:.3f} GiB; main() "
+        f"{wall:.2f} s with loading the cache, the null model and eval")
+
+    say("  a second call (--eval_only) reuses the cache files")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev = cli.main(cache_explain_argv(ds_dir, ckpt_dir, cache_dir, out,
+                                         "--eval_only"))
+    if {p: os.stat(p).st_mtime_ns for p in mtimes} != mtimes or \
+            len(glob.glob(os.path.join(cache_dir, "*.npz"))) != 2:
+        raise AssertionError("the cache files changed")
+    with open(os.path.join(out, "results",
+                           f"explainer_tgn_{ENHANCE_TGN_DATA}.json")) as f:
+        saved = json.load(f)
+    worst = max(abs(ev[k] - saved[k]) for k in ev)
+    if not worst <= 1e-6:
+        raise AssertionError(f"--eval_only gave {ev}, the run saved {saved}")
+    say(f"  files unchanged; the saved explainer's test metrics reproduced "
+        f"from the test cache (max difference {worst:.3e})")
+
+    say(f"[cache-reference] one cached explainer train step (batch "
+        f"{EXPLAIN_BATCH}, dropout {DROPOUT}, the same cached inputs and "
+        f"draws) on the card against the CPU, the base at float32, with "
+        f"[explain-reference]'s tolerances")
+    cpu = torch.device("cpu")
+    tc, _ = explainer_steps_on(cpu, ds, ckpt_dir, torch.float32, "tgn",
+                               ENHANCE_TGN_DATA)
+    tg, _ = explainer_steps_on(dev, ds, ckpt_dir, torch.float32, "tgn",
+                               ENHANCE_TGN_DATA)
+    idx = loops.epoch_order(len(ds.train), EXPLAIN_BATCH, True, SEED + 1)[0]
+    batch = loops.Batch(*(torch.from_numpy(x[idx]) for x in (
+        ds.train.src, ds.train.dst, ds.train.ts, ds.train.e_idx)),
+        mask=torch.ones(EXPLAIN_BATCH, dtype=torch.bool))
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 7)
+    for f in kernels.values():
+        f.launches = 0
+    compare_explainer_train_steps(
+        tc, tg, batch, explainer_draws(tc, gen, sample=False), dev,
+        cache_to_inputs(caches["train"], idx, N_DEGREE, cpu))
+    if any(kernels[k].launches for k in _NO_SAMPLING):
+        raise AssertionError("a cached step launched a sampling kernel")
+    return launches, numbers
+
+
+def pipeline_phase(work, ds_dir, torch):
+    """[pipeline]: ``cli pipeline`` for a GraphMixer on ``TGAT_DATA``, one
+    epoch a stage, in a scratch working directory with ``TEMPME_DATA_DIR``
+    set; then ``cli validate``. Returns the stages' numbers."""
+    import math
+    from tempme_tpu_torch import cli
+    cwd = os.path.join(work, "pipeline_cwd")
+    os.makedirs(cwd)
+    argv = ["pipeline", "--data", TGAT_DATA, "--base_types", "graphmixer",
+            "--n_epoch_base", "1", "--n_epoch_exp", "1", "--n_epoch_enh",
+            "1"]
+    say(f"[pipeline] cli {' '.join(argv)} (learn-base: 2 mixer blocks, "
+        f"batch {MIXER_BATCH}; explain and enhance: batch {EXPLAIN_BATCH}), "
+        f"in a scratch working directory, TEMPME_DATA_DIR set; then cli "
+        f"validate")
+    old_cwd, old_env = os.getcwd(), os.environ.get("TEMPME_DATA_DIR")
+    os.chdir(cwd)
+    os.environ["TEMPME_DATA_DIR"] = ds_dir
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            results = cli.main(argv)
+        wall = time.perf_counter() - t0
+        for line in printed.getvalue().splitlines():
+            if line.startswith("[pipeline]") or line.startswith("epoch"):
+                say(f"    | {line}")
+        r = results["graphmixer"]
+        if "error" in r or cli.exit_code("pipeline", results) != 0:
+            raise AssertionError(f"a pipeline stage failed: {r}")
+        for stage in ("base_ap", "explainer_score", "enhance_ap"):
+            if not (isinstance(r[stage], float) and math.isfinite(r[stage])
+                    and 0.0 <= r[stage] <= 1.0):
+                raise AssertionError(f"pipeline {stage} {r[stage]}")
+        for f in (f"params_torch/tgnn/graphmixer_{TGAT_DATA}.pt",
+                  f"params_torch/explainer/graphmixer/{TGAT_DATA}.pt",
+                  f"params_torch/enhance/graphmixer/{TGAT_DATA}.pt",
+                  f"results_torch/enhance_graphmixer_{TGAT_DATA}.json"):
+            if not os.path.exists(f):
+                raise AssertionError(f"the pipeline wrote no {f}")
+        say(f"  base test AP {r['base_ap']:.6f}, explainer val score "
+            f"{r['explainer_score']:.6f}, enhance test AP "
+            f"{r['enhance_ap']:.6f}; {wall:.2f} s")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(["validate", "--data", TGAT_DATA])
+        for line in printed.getvalue().splitlines():
+            say(f"    | {line}")
+        if rc != 0:
+            raise AssertionError(f"cli validate returned {rc}")
+    finally:
+        os.chdir(old_cwd)
+        if old_env is None:
+            os.environ.pop("TEMPME_DATA_DIR", None)
+        else:
+            os.environ["TEMPME_DATA_DIR"] = old_env
+    return dict(r, wall_s=wall)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tempme_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -2903,6 +3343,8 @@ def main():
     say("[kernels] at the TGAT paths' shapes (3 layers, d_k 258, hop 3) and "
         "C3's sizes")
     tgat_rows, tgat_errs = check_tgat_kernels(g, torch, dev)
+    say("[kernels] at the walk cache's build shapes (batch 128)")
+    cache_rows = check_cache_kernels(ds, g, torch, dev)
 
     say("[serve] train -> val -> test, memory carried in time order, "
         f"batch {BATCH}, {N_DEGREE} neighbours")
@@ -3063,19 +3505,24 @@ def main():
             graphmixer_phases(work, ds_dir, ds30, dev, torch)
         enhance_launches, enhance_numbers = enhance_phases(
             work, ds_dir, ds30, dev, torch)
+        cache_launches, cache_numbers = cache_phases(
+            work, ds_dir, dev, torch, explain_numbers["train_ms_per_step"])
+        pipeline_numbers = pipeline_phase(work, ds_dir, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
     say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
     say(f"  GraphMixer training cell: {json.dumps(mixer_numbers)}")
     say(f"  GraphMixer explainer cell: {json.dumps(mx_numbers)}")
-    for path, nums in enhance_numbers.items():
+    for path, nums in {**enhance_numbers, **cache_numbers}.items():
         say(f"  {path} cell: {json.dumps(nums)}")
+    say(f"  pipeline cell: {json.dumps(pipeline_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
-               "mixer-explain": mx_launches, **enhance_launches}
+               "mixer-explain": mx_launches, **enhance_launches,
+               **cache_launches}
     tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
                 "attend": "attend tgat m=12800 dk=258 bfloat16",
                 "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",
@@ -3086,6 +3533,10 @@ def main():
     enhance_rows = ("explain hop m=2000 bfloat16",
                     "explain root m=100 bfloat16")
     enhance_of = {"attend_drop": drop_rows, "attend_bwd": bwd_rows}
+    # the walk cache build's shapes (batch 128, n 20)
+    cache_of = {"sample_rows": CACHE_SHAPES[:2],
+                "sample_union": CACHE_SHAPES[2:3],
+                "sample_masked": CACHE_SHAPES[3:]}
     kernels = []
     csrc = "tempme_tpu_torch/ops/kernels/csrc/"
     pallas = "tempme_tpu/ops/pallas/"
@@ -3130,7 +3581,10 @@ def main():
                         "enhance": [dict(enhance_of[name][shape],
                                          shape=shape)
                                     for shape in enhance_rows]
-                        if name in enhance_of else None})
+                        if name in enhance_of else None,
+                        "cache": [dict(cache_rows[shape], shape=shape)
+                                  for shape in cache_of[name]]
+                        if name in cache_of else None})
     say(f"[done] chip_smoke.py ran {time.perf_counter() - T0:.1f} s, the "
         f"kernels' build included")
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Configuration for the port's drivers (base training, the explainer).
 
-The port's copy of the parts of ``tempme_tpu/config.py`` that these paths
-read: ``DEGREE_DICT``, ``DEFAULT_RATIOS``, the data, model, explainer and
-train configs, the shared argument groups and ``config_from_args``. The
+The port's copy of ``tempme_tpu/config.py`` but its mesh axes
+(``ParallelConfig``, ROADMAP A16): ``DEGREE_DICT``, ``DEFAULT_RATIOS``, the
+data, model, sampler, explainer and train configs, ``Config.for_dataset``,
+the shared argument groups and ``config_from_args``. The
 batch size is resolved in one place, ``resolve_bs``, which
 ``config_from_args`` calls: an explicit ``--bs`` wins, a batch size below 1
 is refused, and a driver that trains a 3-layer TGAT resolves it first with
@@ -61,6 +62,16 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Temporal neighbour and motif walk sampling."""
+    n_degree: int = 30
+    bias: float = 0.0                     # exp-decay bias (0: uniform)
+    n_walks_deg: int = 30                 # first-hop fanout of the walks
+    walk_neighbors: int = 3               # continuations per first event
+    chunk: int = 128                      # candidate-scan chunk
+
+
+@dataclasses.dataclass(frozen=True)
 class ExplainerConfig:
     """The TempME explainer (the reference's temp_exp_main.py:30-53)."""
     out_dim: int = 40
@@ -84,9 +95,23 @@ class TrainConfig:
 class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     explainer: ExplainerConfig = dataclasses.field(
         default_factory=ExplainerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    @staticmethod
+    def for_dataset(name: str, base_type: str = "tgn",
+                    **overrides) -> "Config":
+        """The defaults for dataset ``name``: its neighbour count, and 3
+        layers for a TGAT, else 2; ``overrides`` replace whole groups."""
+        deg = DEGREE_DICT.get(name, 20)
+        cfg = Config(
+            data=DataConfig(name=name),
+            model=ModelConfig(base_type=base_type, n_degree=deg,
+                              n_layers=3 if base_type == "tgat" else 2),
+            sampler=SamplerConfig(n_degree=deg, n_walks_deg=deg))
+        return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def add_common_args(p, bs: int = 256, n_epoch: int = 20, lr: float = 1e-3):
@@ -187,6 +212,8 @@ def config_from_args(args) -> Config:
         embedding_module=g("embedding_module", "graph_attention"),
         agg_method=g("agg_method", "attn"), attn_mode=g("attn_mode", "prod"),
         use_time=g("use_time", "time"))
+    sampler = SamplerConfig(n_degree=model.n_degree,
+                            n_walks_deg=model.n_degree)
     explainer = ExplainerConfig(
         out_dim=g("out_dim", 40), hid_dim=g("hid_dim", 64),
         prior_p=g("prior_p", 0.3), beta=g("beta", 0.5),
@@ -194,4 +221,5 @@ def config_from_args(args) -> Config:
     train = TrainConfig(batch_size=resolve_bs(args), lr=args.lr,
                         weight_decay=g("weight_decay", 0.0),
                         n_epoch=args.n_epoch, seed=args.seed)
-    return Config(data=data, model=model, explainer=explainer, train=train)
+    return Config(data=data, model=model, sampler=sampler,
+                  explainer=explainer, train=train)

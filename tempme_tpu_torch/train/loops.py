@@ -248,17 +248,24 @@ def make_base_eval_step(model, g_full, feats, dst_table, k,
     return BaseEvalStep(model, g_full, feats, dst_table, k, n)
 
 
-def stack_batches(events, batch_size: int, shuffle: bool, seed: int,
-                  device) -> Batch:
-    """All full batches of an epoch as one ``[K, B]`` Batch on ``device``;
-    the shuffle is numpy's ``RandomState(seed)``, as in the JAX package, so
-    both packages see the same batches."""
-    n = len(events)
+def epoch_order(n: int, batch_size: int, shuffle: bool,
+                seed: int) -> np.ndarray:
+    """The event indices of an epoch's full batches, ``[K, B]``: numpy's
+    ``RandomState(seed)`` shuffle, as in the JAX package, so both packages
+    see the same batches."""
     idx = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)
     k = n // batch_size
-    idx = idx[:k * batch_size].reshape(k, batch_size)
+    return idx[:k * batch_size].reshape(k, batch_size)
+
+
+def stack_batches(events, batch_size: int, shuffle: bool, seed: int,
+                  device) -> Batch:
+    """All full batches of an epoch (``epoch_order``) as one ``[K, B]``
+    Batch on ``device``."""
+    idx = epoch_order(len(events), batch_size, shuffle, seed)
+    k = idx.shape[0]
     cols = [torch.from_numpy(np.ascontiguousarray(x[idx])).to(device)
             for x in (events.src, events.dst, events.ts, events.e_idx)]
     return Batch(*cols, mask=torch.ones((k, batch_size), dtype=torch.bool,

@@ -29,13 +29,22 @@ Ratio-APS (a resumed run must strictly beat the restored best), writes a
 train-state checkpoint each epoch (and every ``--ckpt_every_steps``
 steps), resumes from it (``--resume``), and evaluates a saved explainer
 alone (``--eval_only``). It runs on the CUDA device unless a Python caller
-passes ``device="cpu"`` to ``main``. The offline walk cache (``--use_cache``,
-ROADMAP A13) and the profiler hook (``--profile``, A15) are not ported and
-raise.
+passes ``device="cpu"`` to ``main``.
+
+With ``--use_cache`` the driver trains from the offline walk cache
+(``data/cache.py``): ``{cache_dir}/{data}_{train,test}.npz``, built at the
+base's ``n_degree`` when absent (the negatives seeded from ``--seed``),
+read otherwise. A train step then takes its negatives, supports and walks
+from the cache, sliced on the host in ``stack_batches``' shuffle order,
+and draws only the dropout, gate and gamma draws; test is evaluated from
+the test cache, val online, as in the JAX package. The cache holds 2-hop
+supports, so a 3-layer TGAT refuses it. The profiler hook (``--profile``,
+ROADMAP A15) is not ported and raises.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import os.path as osp
 import time
 from typing import NamedTuple, Optional
@@ -45,6 +54,7 @@ import torch
 
 from ..config import (DEFAULT_RATIOS, add_common_args, add_explainer_args,
                       config_from_args)
+from ..data import cache as C
 from ..data.events import RandEdgeSampler, load_dataset
 from ..data.graph import build_temporal_graph
 from ..explain.null_model import get_null_distribution
@@ -181,9 +191,14 @@ class _Steps:
                                    N_WALK_CONT, dev) for _ in range(3))
         return support, walks
 
-    def _forward(self, batch, draws: ExplainerDraws, training: bool):
-        bgd, subs, walks = sample_explainer_inputs(
-            self.g, batch, self.dst_table, self.n, draws, self.k_hops)
+    def _forward(self, batch, draws: ExplainerDraws, training: bool,
+                 inputs=None):
+        """``inputs``: the batch's ``(bgd, subs, walks)`` from the walk
+        cache (``cache_to_inputs``), or None to sample them from
+        ``draws``."""
+        bgd, subs, walks = inputs if inputs is not None else \
+            sample_explainer_inputs(self.g, batch, self.dst_table, self.n,
+                                    draws, self.k_hops)
         args = (batch.src, batch.dst, bgd, batch.ts, batch.eidx, subs)
         with torch.no_grad():
             pos_ori, neg_ori = self.contrast(self.feats, *args, None)
@@ -219,13 +234,15 @@ class ExplainerTrainStep(_Steps):
                          null_dist, prior_p)
         self.optimizer, self.beta, self.if_bern = optimizer, beta, if_bern
 
-    def draw(self, generator: torch.Generator,
-             batch_size: int) -> ExplainerDraws:
+    def draw(self, generator: torch.Generator, batch_size: int,
+             sample: bool = True) -> ExplainerDraws:
         """The step's draws from ``generator`` in a fixed order: support,
-        walks, then per side the importance's dropout uniforms, then per
+        walks (unless ``sample`` is False: the inputs come from the walk
+        cache), then per side the importance's dropout uniforms, then per
         side the gate's (a TGN's explainer); the gamma draws come from the
         same generator inside the step."""
-        support, walks = self._support_and_walks(generator, batch_size)
+        support, walks = self._support_and_walks(generator, batch_size) \
+            if sample else (None, None)
         imp = edge = None
         if self.explainer.dropout > 0.0:
             dev = self.g.device
@@ -243,9 +260,10 @@ class ExplainerTrainStep(_Steps):
         return ExplainerDraws(support, walks, imp, edge,
                               generator if self.if_bern else None)
 
-    def __call__(self, batch: loops.Batch, draws: ExplainerDraws):
+    def __call__(self, batch: loops.Batch, draws: ExplainerDraws,
+                 inputs=None):
         self.optimizer.zero_grad(set_to_none=True)
-        out = self._forward(batch, draws, self.if_bern)
+        out = self._forward(batch, draws, self.if_bern, inputs)
         pos, neg, pos_ori, neg_ori = (out[k] for k in ("pos", "neg",
                                                        "pos_ori", "neg_ori"))
         y_ori = (torch.cat([pos_ori, neg_ori]) > 0.0).float()
@@ -281,8 +299,9 @@ class ExplainerEvalStep(_Steps):
         return ExplainerDraws(*self._support_and_walks(generator, batch_size))
 
     @torch.no_grad()
-    def __call__(self, batch: loops.Batch, draws: ExplainerDraws):
-        out = self._forward(batch, draws, training=False)
+    def __call__(self, batch: loops.Batch, draws: ExplainerDraws,
+                 inputs=None):
+        out = self._forward(batch, draws, False, inputs)
         keeps = keep_masks_for_ratios(out["explanation"], self.ratios,
                                       self.n, len(out["explanation"]))
         args = (batch.src, batch.dst, out["bgd"], batch.ts, *out["subs"])
@@ -312,19 +331,29 @@ def _sig(x):
 
 
 def run_eval(eval_step: ExplainerEvalStep, events, batch_size: int,
-             test_threshold: bool = True, seed: int = 1234) -> dict:
+             test_threshold: bool = True, seed: int = 1234,
+             cache: Optional[dict] = None) -> dict:
     """The eval protocol over a split in time order: per batch AP, AUC and
     accuracy of the explained prediction against the base's own labels,
     fidelity (prob and logit) and, with ``test_threshold``, the ratio
     sweep's mean APS, AUC, ACC, prob and logit; then the means over the
-    batches. Padded rows of the last batch are left out."""
+    batches. Padded rows of the last batch are left out. With ``cache``
+    (the split's walk cache) each batch's inputs are its rows there (the
+    padding rows read row 0, as the padding events are event 0)."""
     dev = eval_step.g.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     outs, masks = [], []
-    for batch in loops.iter_batches(events, batch_size,
-                                    drop_remainder=False, device=dev):
-        outs.append(eval_step(batch, eval_step.draw(gen, batch_size)))
+    for i, batch in enumerate(loops.iter_batches(
+            events, batch_size, drop_remainder=False, device=dev)):
+        if cache is None:
+            outs.append(eval_step(batch, eval_step.draw(gen, batch_size)))
+        else:
+            idx = np.arange(i * batch_size, (i + 1) * batch_size)
+            idx[idx >= len(events)] = 0
+            outs.append(eval_step(batch, ExplainerDraws(None, None),
+                                  C.cache_to_inputs(cache, idx, eval_step.n,
+                                                    dev)))
         masks.append(batch.mask)
     stats = {k: [] for k in ("aps", "auc", "acc", "fid_prob", "fid_logit",
                              "r_aps", "r_auc", "r_acc", "r_prob", "r_logit")}
@@ -361,6 +390,23 @@ def run_eval(eval_step: ExplainerEvalStep, events, batch_size: int,
     return {k: float(np.mean(v)) if v else 0.0 for k, v in stats.items()}
 
 
+def open_caches(cache_dir: str, data: str, n_degree: int, splits: dict,
+                samplers: dict, seed: int) -> dict:
+    """``{mode: cache}`` for each ``mode`` of ``splits`` (``{mode: (events,
+    graph)}``): read from ``{cache_dir}/{data}_{mode}.npz``, built with
+    ``samplers[mode]``'s negatives and written there first when absent."""
+    os.makedirs(cache_dir, exist_ok=True)
+    caches = {}
+    for mode, (events, g) in splits.items():
+        path = osp.join(cache_dir, f"{data}_{mode}.npz")
+        if not osp.exists(path):
+            print(f"building walk cache -> {path}")
+            C.save_cache(path, C.build_walk_cache(g, events, samplers[mode],
+                                                  n_degree, seed=seed))
+        caches[mode] = C.load_cache(path)
+    return caches
+
+
 def _print_eval(ev: dict, epoch: int, split: str) -> None:
     print(f"[eval {split} epoch {epoch}] aps={ev['aps']:.4f} "
           f"auc={ev['auc']:.4f} acc={ev['acc']:.4f} "
@@ -389,11 +435,10 @@ def main(argv=None, device=None):
     p.add_argument("--profile", action="store_true",
                    help="not ported (ROADMAP item A15)")
     p.add_argument("--use_cache", action="store_true",
-                   help="not ported (ROADMAP item A13)")
+                   help="train and evaluate test from the offline walk cache "
+                        "(built on first use) instead of sampling online")
+    p.add_argument("--cache_dir", type=str, default="cache_torch")
     args = p.parse_args(argv)
-    if args.use_cache:
-        raise NotImplementedError("the offline walk cache is not ported yet "
-                                  "(ROADMAP item A13)")
     if args.profile:
         raise NotImplementedError("the profiler hook is not ported yet "
                                   "(ROADMAP item A15)")
@@ -411,6 +456,13 @@ def main(argv=None, device=None):
                               f"{args.base_type}_{cfg.data.name}.pt"),
                      device=dev)
     n_degree = int(base.meta["n_degree"])
+    if args.use_cache and args.base_type == "tgat" and \
+            base.model.num_layers > C.HOPS:
+        raise ValueError(
+            f"--use_cache: the walk cache holds {C.HOPS}-hop supports, and "
+            f"a {base.model.num_layers}-layer TGAT reads "
+            f"{base.model.num_layers} hops; explain it without --use_cache "
+            f"or use a {C.HOPS}-layer TGAT")
 
     print("estimating null motif distribution (shuffled graph)...")
     null_dist = torch.from_numpy(get_null_distribution(
@@ -439,22 +491,30 @@ def main(argv=None, device=None):
     generator.manual_seed(tc.seed)
     state = loops.TrainState(explainer, optimizer, generator)
 
-    def table(*lists):
-        sampler = RandEdgeSampler(*lists)
-        return torch.from_numpy(sampler.dst_list).to(dev)
+    # the negatives' samplers: the walk cache's are seeded from --seed
+    samplers = {"train": RandEdgeSampler([ds.train.src], [ds.train.dst],
+                                         seed=tc.seed),
+                "test": RandEdgeSampler(
+                    [ds.train.src, ds.val.src, ds.test.src],
+                    [ds.train.dst, ds.val.dst, ds.test.dst], seed=tc.seed)}
     train_step = ExplainerTrainStep(
-        explainer, base, g_train, feats, table([ds.train.src], [ds.train.dst]),
-        n_degree, null_dist, optimizer, ec.prior_p, ec.beta,
-        bool(args.if_bern))
+        explainer, base, g_train, feats,
+        torch.from_numpy(samplers["train"].dst_list).to(dev), n_degree,
+        null_dist, optimizer, ec.prior_p, ec.beta, bool(args.if_bern))
     eval_step = ExplainerEvalStep(
         explainer, base, g_full, feats,
-        table([ds.train.src, ds.val.src, ds.test.src],
-              [ds.train.dst, ds.val.dst, ds.test.dst]),
-        n_degree, null_dist, ec.prior_p, ec.ratios)
+        torch.from_numpy(samplers["test"].dst_list).to(dev), n_degree,
+        null_dist, ec.prior_p, ec.ratios)
+    caches = {}
+    if args.use_cache:
+        caches = open_caches(args.cache_dir, cfg.data.name, n_degree,
+                             {"train": (ds.train, g_train),
+                              "test": (ds.test, g_full)}, samplers, tc.seed)
 
     def evaluate(epoch, split):
         ev = run_eval(eval_step, ds.val if split == "val" else ds.test,
-                      args.test_bs, bool(args.test_threshold))
+                      args.test_bs, bool(args.test_threshold),
+                      cache=caches.get(split))
         _print_eval(ev, epoch, split)
         return ev
 
@@ -495,6 +555,7 @@ def main(argv=None, device=None):
     logger = MetricsLogger(args.log_dir, run_name=time.strftime(
         f"{args.base_type}_{cfg.data.name}_%Y%m%d_%H%M%S_explainer"))
     bs = tc.batch_size
+    cached = "train" in caches
     for epoch in range(start_epoch, tc.n_epoch):
         first = start_step if epoch == start_epoch else 0
         if first:
@@ -502,12 +563,21 @@ def main(argv=None, device=None):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.time()
-        auxs = []
+        auxs, slicing = [], 0.0
+        order = loops.epoch_order(len(ds.train), bs, shuffle=True,
+                                  seed=tc.seed + epoch) if cached else None
         batches = loops.stack_batches(ds.train, bs, shuffle=True,
                                       seed=tc.seed + epoch, device=dev)
         for i in range(first, batches.src.shape[0]):
             batch = loops.Batch(*(x[i] for x in batches))
-            auxs.append(train_step(batch, train_step.draw(generator, bs)))
+            inputs = None
+            if cached:                # host time: slicing, copying over
+                t_slice = time.perf_counter()
+                inputs = C.cache_to_inputs(caches["train"], order[i],
+                                           n_degree, dev)
+                slicing += time.perf_counter() - t_slice
+            auxs.append(train_step(batch, train_step.draw(
+                generator, bs, sample=not cached), inputs))
             if args.ckpt_every_steps and \
                     (i + 1) % args.ckpt_every_steps == 0:
                 save_checkpoint(train_ckpt, state.state_dict(),
@@ -523,10 +593,14 @@ def main(argv=None, device=None):
                  "fid_prob": float(np.mean(agg["fid_prob"])),
                  "fid_logit": float(np.mean(agg["fid_logit"])),
                  "events_per_s": n_ev / dt}
+        if cached:
+            train["cache_slice_ms_per_step"] = slicing / len(auxs) * 1e3
         print(f"epoch {epoch}: loss={train['loss']:.4f} "
               f"aps={train['aps']:.4f} fid_prob={train['fid_prob']:.4f} "
               f"fid_logit={train['fid_logit']:.4f} "
-              f"({train['events_per_s']:,.0f} events/s)")
+              f"({train['events_per_s']:,.0f} events/s)"
+              + (f" cache slicing {train['cache_slice_ms_per_step']:.3f} "
+                 f"ms/step" if cached else ""))
         for i, loss in enumerate(agg["loss"]):
             logger.add_scalar("Train/step_loss", float(loss),
                               epoch * (len(ds.train) // bs) + first + i)
