@@ -29,9 +29,10 @@ script
    holds one train step on the card against the same step on the CPU (same
    weights, Adam state, memory and draws); traces 20 train steps;
 6. trains the TempME explainer for one epoch on the frozen TGN of step 5
-   through ``temp_exp_main.main`` (911 steps at batch 100, 20 neighbours,
-   60 walks a side, then val and test with fidelity and the 16-ratio
-   sweep), checks its numbers, files and the launches of all seven kernels
+   through ``temp_exp_main.main`` over the stream's first 30,000 events
+   (``ml_wikishape30k``, the cut of steps 8-12; 169 steps at batch 100,
+   20 neighbours, 60 walks a side, then val and test with fidelity and the
+   16-ratio sweep), checks its numbers, files and the launches of all seven kernels
    per step; stops a second run at a mid-epoch checkpoint and resumes it;
    runs ``--eval_only`` on the saved explainer; holds one explainer train
    step and one eval step's ratio sweep on the card against the CPU
@@ -43,8 +44,8 @@ script
    and 8,192 slots a row);
 8. trains TGAT at ``learn_base.main``'s default flags (3 layers, 2 heads,
    the deep-TGAT batch 32, width 172) for one epoch on the first 30,000
-   events of the stream, written as ``ml_wikishape30k`` (a cut of scale,
-   not of width), and checks the loss, the APs, the files and the launches
+   events of the stream, ``ml_wikishape30k`` (a cut of scale, not of
+   width), and checks the loss, the APs, the files and the launches
    per step (each block's forward again in the backward: its blocks are
    checkpointed); resumes the state of a run stopped at a mid-epoch
    checkpoint; holds one TGAT train step on the card against the CPU, and
@@ -85,7 +86,21 @@ script
 12. runs ``cli pipeline`` (learn-base -> explain -> enhance) for a
    GraphMixer on the cut, one epoch a stage, in a scratch working
    directory, and ``cli validate``;
-13. prints its run time, one JSON line of kernel numbers, the card again,
+13. trains every base variant of the drivers' flags on the stream's first
+   5,000 events (``ml_wikishape5k``, the node table trimmed; width 172):
+   a TGN (batch 256) (a) ``--memory_updater rnn --aggregator mean
+   --message_function identity``, (b) ``--embedding_module identity``,
+   (c) ``--embedding_module time``, and a TGAT at its defaults (3 layers,
+   batch 32) (a) ``--attn_mode map``, (b) ``--agg_method lstm --use_time
+   pos``, (c) ``--agg_method mean --use_time empty``, one epoch each,
+   checking the losses, APs, the checkpoint's meta and the launches per
+   step, then ``--eval_only`` on each; holds one train step of each run
+   on the card against the CPU; trains the explainer on TGN (a) and
+   enhance on TGN (b), and checks that the explainer refuses TGAT (b)
+   (a process that exits non-zero with the reason); holds the sampler's
+   exp-decay and binary modes at Q 2,000 on the card against the CPU, bit
+   for bit;
+14. prints its run time, one JSON line of kernel numbers, the card again,
    and the last line ``{"ok": true, "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
@@ -167,6 +182,23 @@ def time_ms(fn, reps=20, repeats=7):
     host = sorted(timed(fn, 1) for _ in range(reps))
     del graph
     return device[len(device) // 2], host[len(host) // 2]
+
+
+def eager_ms(fn, reps=5):
+    """Median ms of single eager calls of ``fn`` timed with CUDA events
+    (for work that syncs with the host, which a CUDA graph cannot hold)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def sample_rows_bytes(g, nodes, times, u, eids):
@@ -871,7 +903,7 @@ def profile_training(ds, out, dev, n_steps=20):
 
 
 EXPLAIN_BATCH = 100
-EXPLAIN_RESUME_STEP = 800
+EXPLAIN_RESUME_STEP = 100
 
 
 def union_bytes(g, a, b, e, n):
@@ -1066,6 +1098,22 @@ EXPLAIN_PER_STEP = {
     "null": dict(sample_rows=6, sample_union=3, sample_masked=3,
                  walk_to_edge=0, walk_to_edge_bwd=0, attend=0,
                  attend_drop=0, attend_bwd=0)}
+
+
+def explain_base_dir(work, ckpt_dir):
+    """A checkpoint directory whose ``tgnn/tgn_{EXPLAIN_DATA}.pt`` is the
+    TGN of [train] (``ckpt_dir``): trained on the whole stream, it runs on
+    the cut, whose node table is the stream's. [explain] explains it on the
+    cut."""
+    import shutil
+    mine = os.path.join(work, "explain_base", "params")
+    os.makedirs(os.path.join(mine, "tgnn"))
+    for suffix in ("", ".json"):
+        shutil.copy(os.path.join(ckpt_dir, "tgnn",
+                                 f"tgn_{DATA_NAME}.pt{suffix}"),
+                    os.path.join(mine, "tgnn",
+                                 f"tgn_{EXPLAIN_DATA}.pt{suffix}"))
+    return mine
 
 
 def explain_argv(ds_dir, ckpt_dir, out, *extra, base_type="tgn",
@@ -1449,6 +1497,9 @@ def profile_explainer(ds, ckpt_dir, dev, n_steps=20, base_type="tgn",
 # scale, not of width
 TGAT_EVENTS = 30_000
 TGAT_DATA = "wikishape30k"
+# [explain] explains the TGN of [train] over the same cut (its whole-stream
+# epoch, 911 train and 474 eval steps, left the script no room)
+EXPLAIN_DATA = TGAT_DATA
 TGAT_BATCH = 32                      # the deep-TGAT batch rule's (not passed)
 TGAT_REF_BATCH = 8                   # the card-vs-CPU train step's batch
 TGAT_CKPT_STEP = 500                 # [tgat-train]'s mid-epoch checkpoint
@@ -1657,26 +1708,36 @@ def eval_only(argv, results, what):
 def tgn_eval_only(ds_dir, out, dev):
     """``learn_base --eval_only`` on the TGN of [train] scores test from
     the checkpoint's train-side memory, with no val pass first (the JAX
-    package's protocol): its AP, AUC and accuracy equal, exactly,
+    package's protocol): ``check_tgn_eval_only``. The training run's own
+    test numbers (its memory carried through val first) are printed beside
+    them."""
+    from tempme_tpu_torch.data.events import load_dataset
+    with open(os.path.join(out, "results",
+                           f"base_tgn_{DATA_NAME}.json")) as f:
+        after_val = json.load(f)             # --eval_only rewrites it
+    check_tgn_eval_only(train_argv(ds_dir, out),
+                        os.path.join(out, "params", "tgnn",
+                                     f"tgn_{DATA_NAME}.pt"),
+                        load_dataset(DATA_NAME, ds_dir), dev, "TGN")
+    say(f"  (the training run, its memory through val first: AP "
+        f"{after_val['ap']:.6f})")
+
+
+def check_tgn_eval_only(argv, params, ds, dev, what):
+    """``--eval_only`` on a TGN: its test AP, AUC and accuracy equal
     ``evaluate_tgn`` run here on the test split from the memory the
-    checkpoint saved. The training run's own test numbers (its memory
-    carried through val first) are printed beside them."""
+    checkpoint ``params`` saved, exactly."""
     import torch
-    from tempme_tpu_torch.data.events import RandEdgeSampler, load_dataset
+    from tempme_tpu_torch.data.events import RandEdgeSampler
     from tempme_tpu_torch.data.graph import build_temporal_graph
     from tempme_tpu_torch.models.common import Features
     from tempme_tpu_torch.train import learn_base
     from tempme_tpu_torch.train.base_loader import load_base
     from tempme_tpu_torch.train.learn_tgn import (evaluate_tgn,
                                                   make_tgn_eval_step)
-    with open(os.path.join(out, "results",
-                           f"base_tgn_{DATA_NAME}.json")) as f:
-        after_val = json.load(f)             # --eval_only rewrites it
     with contextlib.redirect_stdout(io.StringIO()):
-        test = learn_base.main(train_argv(ds_dir, out, "--eval_only"))
-    ds = load_dataset(DATA_NAME, ds_dir)
-    base = load_base(os.path.join(out, "params", "tgnn",
-                                  f"tgn_{DATA_NAME}.pt"), device=dev)
+        test = learn_base.main(argv + ["--eval_only"])
+    base = load_base(params, device=dev)
     dst = RandEdgeSampler([ds.train.src, ds.val.src, ds.test.src],
                           [ds.train.dst, ds.val.dst, ds.test.dst]).dst_list
     step = make_tgn_eval_step(
@@ -1687,12 +1748,11 @@ def tgn_eval_only(ds_dir, out, dev):
         torch.from_numpy(dst).to(dev), N_DEGREE)
     want, _ = evaluate_tgn(step, base.memory, ds.test, BATCH)
     if any(test[k] != want[k] for k in ("ap", "auc", "acc")):
-        raise AssertionError(f"TGN --eval_only gave {test}; evaluate_tgn "
+        raise AssertionError(f"{what} --eval_only gave {test}; evaluate_tgn "
                              f"from the saved memory gives {want}")
-    say(f"  TGN: test AP {test['ap']:.6f}, AUC {test['auc']:.6f}, acc "
+    say(f"  {what}: test AP {test['ap']:.6f}, AUC {test['auc']:.6f}, acc "
         f"{test['acc']:.6f}, equal to evaluate_tgn from the checkpoint's "
-        f"memory (the training run, its memory through val first: AP "
-        f"{after_val['ap']:.6f})")
+        f"memory")
 
 
 def tgat_steps_on(dev, ds, blob, compute_dtype):
@@ -1737,7 +1797,9 @@ def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4,
     (the step is Adam's first) the unsettled entries are held within 2 lr:
     the first step moves an entry by lr g / (|g| + eps), so a round-off
     gradient above eps whose sign differs between the sides parts them by
-    up to 2 lr."""
+    up to 2 lr. A parameter that no gradient reaches on either side (a
+    TGN's time encoder where its embedding reads no support) must come out
+    unchanged on both."""
     import torch
     loss_c, loss_g = aux_c["loss"].item(), aux_g["loss"].item()
     if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
@@ -1745,9 +1807,16 @@ def compare_train_steps(step_c, aux_c, step_g, aux_g, what, grad_atol=1e-4,
                              f"on the CPU")
     worst_g, worst_p, unsettled = 0.0, 0.0, 0
     params_c = dict(step_c.model.named_parameters())
-    model_top = max(p.grad.abs().max().item() for p in params_c.values())
+    model_top = max(p.grad.abs().max().item() for p in params_c.values()
+                    if p.grad is not None)
     for name, p in step_g.model.named_parameters():
         pc = params_c[name]
+        if p.grad is None or pc.grad is None:
+            if p.grad is not None or pc.grad is not None or \
+                    not torch.equal(p.detach().cpu(), pc.detach()):
+                raise AssertionError(f"{what}: {name} has a gradient on "
+                                     f"one side only, or moved without one")
+            continue
         g_c, g_g = pc.grad, p.grad.cpu()
         zero = name.endswith(exact_zero) if exact_zero else False
         top = model_top if zero else g_c.abs().max().item()
@@ -2403,10 +2472,11 @@ def enhance_ckpt_dir(out, base_ckpt_dir, base_type, data):
 
 
 def enhance(ds, ds_dir, base_ckpt_dir, out, torch, base_type,
-            data=ENHANCE_DATA, epochs=1):
+            data=ENHANCE_DATA, epochs=1, per_step=None):
     """``enhance_main.main`` for ``epochs`` epochs at full width on the
-    card on the base of ``base_ckpt_dir``, with ``ENHANCE_PER_STEP``
-    launches of each kernel per train and eval step: finite losses, APs in
+    card on the base of ``base_ckpt_dir``, with ``per_step`` launches of
+    each kernel per train and eval step (``ENHANCE_PER_STEP`` of the base
+    type by default): finite losses, APs in
     [0, 1], the files written, the saved base moved off the loaded one. A
     run of 2 epochs also keeps a copy of its enhance directory as it stood
     after epoch 0. Returns (launches, numbers, checkpoint dir, that
@@ -2420,7 +2490,7 @@ def enhance(ds, ds_dir, base_ckpt_dir, out, torch, base_type,
     steps = {"train": len(ds.train) // ENHANCE_BATCH,
              "eval": math.ceil(len(ds.test) / ENHANCE_BATCH)
              + (0 if is_tgat else math.ceil(len(ds.val) / ENHANCE_BATCH))}
-    per_step = ENHANCE_PER_STEP[base_type]
+    per_step = per_step or ENHANCE_PER_STEP[base_type]
     want = {k: epochs * sum(per_step[p][k] * n for p, n in steps.items())
             for k in kernels}
     ckpt_dir = enhance_ckpt_dir(out, base_ckpt_dir, base_type, data)
@@ -3291,6 +3361,424 @@ def pipeline_phase(work, ds_dir, torch):
     return dict(r, wall_s=wall)
 
 
+VARIANT_EVENTS = 5_000
+VARIANT_DATA = "wikishape5k"
+VARIANT_EXPLAIN_RESUME_STEP = 20     # [variants-explain]'s checkpoint step
+# the drivers' TGN and TGAT variant flags, one run each ([tgn-variants],
+# [tgat-variants]); (a) of the TGN is the one the explainer explains, (b)
+# the one enhance trains
+TGN_VARIANTS = {
+    "a": ("--memory_updater", "rnn", "--aggregator", "mean",
+          "--message_function", "identity"),
+    "b": ("--embedding_module", "identity"),
+    "c": ("--embedding_module", "time")}
+TGAT_VARIANTS = {
+    "a": ("--attn_mode", "map"),
+    "b": ("--agg_method", "lstm", "--use_time", "pos"),
+    "c": ("--agg_method", "mean", "--use_time", "empty")}
+_NO_KERNEL = dict(sample_rows=0, attend=0, attend_drop=0, attend_bwd=0)
+# launches per step: a graph-attention TGN samples 3 sides x 2 hops and
+# embeds 3 sides x 2 layers (the training form and its backward in a train
+# step, the eval form in an eval step); the identity and time embeddings
+# read no support, so they sample none and run no attention; a TGAT variant
+# samples 3 sides x 3 hops, and its blocks (map attention, the pools) are
+# plain PyTorch
+VARIANT_PER_STEP = {
+    ("tgn", "a"): {"train": dict(sample_rows=6, attend=0, attend_drop=6,
+                                 attend_bwd=6),
+                   "eval": dict(sample_rows=6, attend=6, attend_drop=0,
+                                attend_bwd=0)},
+    ("tgn", "b"): {"train": _NO_KERNEL, "eval": _NO_KERNEL},
+    ("tgn", "c"): {"train": _NO_KERNEL, "eval": _NO_KERNEL}}
+for _v in TGAT_VARIANTS:
+    VARIANT_PER_STEP[("tgat", _v)] = {
+        p: dict(_NO_KERNEL, sample_rows=9) for p in ("train", "eval")}
+# map attention's query-side score is the same for every key of a query,
+# so the softmax removes it: these gradients are zero in exact arithmetic
+MAP_QUERY_SCORE = ("weight_map_q", "wq_node_transform.weight")
+
+
+def variant_argv(ds_dir, out, base_type, flags, *extra):
+    """``learn_base`` one epoch on ``VARIANT_DATA`` with a variant's flags:
+    a TGN at batch 256, a TGAT at its defaults (3 layers, 2 heads, the
+    deep-TGAT batch 32); 20 neighbours, dropout 0.1, Adam lr 1e-3."""
+    argv = ["--data", VARIANT_DATA, "--data_dir", ds_dir,
+            "--base_type", base_type, "--n_degree", str(N_DEGREE),
+            "--n_epoch", "1", "--drop_out", str(DROPOUT), "--lr", str(LR),
+            "--seed", str(SEED),
+            "--out_dir", os.path.join(out, "params", "tgnn"),
+            "--log_dir", os.path.join(out, "tb"),
+            "--results_dir", os.path.join(out, "results"), *flags, *extra]
+    if base_type == "tgn":
+        argv += ["--bs", str(BATCH)]
+    return argv
+
+
+def variant_train(ds, ds_dir, out, dev, torch, base_type, name, flags):
+    """One epoch of ``learn_base.main`` on a variant at full width on the
+    card: finite losses, APs in [0, 1], the checkpoint and its meta (the
+    variant's flags; a TGAT's ``pos_seq_len``, a TGN's time statistics),
+    the stated launches per step, then ``--eval_only``: a TGAT's test
+    metrics equal what its run wrote, a TGN's equal ``evaluate_tgn`` from
+    the checkpoint's memory (its run's test came after val moved the
+    memory), exactly. Returns (launches, numbers)."""
+    import math
+    from tempme_tpu_torch.data.events import compute_time_statistics
+    from tempme_tpu_torch.ops.kernels.attend import (attend, attend_bwd,
+                                                     attend_drop)
+    from tempme_tpu_torch.ops.kernels.sample_rows import sample_rows
+    from tempme_tpu_torch.train import learn_base
+    kernels = {"sample_rows": sample_rows, "attend": attend,
+               "attend_drop": attend_drop, "attend_bwd": attend_bwd}
+    batch = BATCH if base_type == "tgn" else TGAT_BATCH
+    per_step = VARIANT_PER_STEP[(base_type, name)]
+    steps = {"train": len(ds.train) // batch,
+             "eval": math.ceil(len(ds.val) / batch)
+             + math.ceil(len(ds.test) / batch)}
+    want = {k: sum(per_step[p][k] * n for p, n in steps.items())
+            for k in kernels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        test_ap = learn_base.main(variant_argv(ds_dir, out, base_type,
+                                               flags))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in printed.getvalue().splitlines():
+        if not line.startswith("  saved"):
+            say(f"    | {line}")
+    say(f"  launches: {launches} for {steps['train']} train and "
+        f"{steps['eval']} eval steps; per step {per_step}")
+    check_launches(launches, want)
+    tags = read_metrics(out)
+    losses = tags["Train/step_loss"]
+    if len(losses) != steps["train"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{base_type} ({name}): a train loss is "
+                             f"missing or not finite")
+    eps = tags["Train/events_per_s"][0]
+    val_ap = tags["Val/ap"][0]
+    for split, ap in (("val", val_ap), ("test", test_ap)):
+        if not 0.0 <= ap <= 1.0:
+            raise AssertionError(f"{base_type} ({name}) {split} AP {ap}")
+    params = os.path.join(out, "params", "tgnn",
+                          f"{base_type}_{VARIANT_DATA}.pt")
+    results = os.path.join(out, "results",
+                           f"base_{base_type}_{VARIANT_DATA}.json")
+    for path in (params, params + ".json", params + ".train_state",
+                 results):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing {path}")
+    with open(params + ".json") as f:
+        meta = json.load(f)
+    for flag, value in zip(flags[::2], flags[1::2]):
+        if meta[flag[2:]] != value:
+            raise AssertionError(f"meta {flag[2:]} {meta[flag[2:]]}")
+    if (meta["node_dim"], meta["n_degree"]) != (172, N_DEGREE):
+        raise AssertionError(f"checkpoint meta {meta}")
+    if base_type == "tgat" and (meta["n_layer"], meta["pos_seq_len"]) != (
+            3, 64):
+        raise AssertionError(f"TGAT checkpoint meta {meta}")
+    if base_type == "tgn":
+        stats = ((0.0, 0.0), (1.0, 1.0))
+        if meta["embedding_module"] == "time":
+            stats = compute_time_statistics(ds.train)
+        if (tuple(meta["mean_time_shift"]),
+                tuple(meta["std_time_shift"])) != stats:
+            raise AssertionError(f"TGN time statistics in the meta {meta}")
+    numbers = dict(train_ms_per_step=batch / eps * 1e3, events_per_s=eps,
+                   loss_first=losses[0], loss_last=losses[-1],
+                   val_ap=val_ap, test_ap=test_ap, peak_gib=peak / 2 ** 30,
+                   wall_s=wall, train_steps=steps["train"],
+                   eval_steps=steps["eval"])
+    say(f"  {steps['train']} steps: {numbers['train_ms_per_step']:.3f} "
+        f"ms/step, {eps:.1f} events/s (the driver's epoch clock); loss "
+        f"first {losses[0]:.6f}, last {losses[-1]:.6f}; val AP "
+        f"{val_ap:.6f}, test AP {test_ap:.6f}; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; main() {wall:.2f} s")
+    argv = variant_argv(ds_dir, out, base_type, flags)
+    if base_type == "tgat":
+        eval_only(argv, results, f"TGAT ({name})")
+    else:
+        check_tgn_eval_only(argv, params, ds, dev, f"TGN ({name})")
+    return launches, numbers
+
+
+def variant_steps_on(dev, ds, out, base_type, compute_dtype=None):
+    """The train step of a variant run's train state (``out``) on ``dev``,
+    a TGN's projections at ``compute_dtype`` (float32 by default; a TGAT
+    variant's blocks are float32 whatever it is): the model rebuilt from
+    its checkpoint's meta, the parameters, Adam state (and a TGN's memory)
+    loaded. Returns (step, memory or None)."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.models.tgat import TGAT
+    from tempme_tpu_torch.models.tgn import TGN, TGNMemoryState
+    from tempme_tpu_torch.train import learn_tgn, loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    path = os.path.join(out, "params", "tgnn",
+                        f"{base_type}_{VARIANT_DATA}.pt")
+    blob, _ = load_checkpoint(path + ".train_state", map_location="cpu")
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    g = build_temporal_graph(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                             device=dev)
+    feats = Features(torch.from_numpy(ds.node_feat).to(dev),
+                     torch.from_numpy(ds.edge_feat).to(dev))
+    dims = (ds.node_feat.shape[1], ds.edge_feat.shape[1])
+    if base_type == "tgn":
+        model = TGN(*dims, ds.full.num_nodes, dropout=DROPOUT,
+                    memory_updater=meta["memory_updater"],
+                    aggregator=meta["aggregator"],
+                    message_function=meta["message_function"],
+                    embedding_type=meta["embedding_module"],
+                    mean_time_shift=meta["mean_time_shift"],
+                    std_time_shift=meta["std_time_shift"], device=dev,
+                    compute_dtype=compute_dtype or torch.float32)
+    else:
+        model = TGAT(*dims, num_layers=3, dropout=DROPOUT,
+                     agg_method=meta["agg_method"],
+                     attn_mode=meta["attn_mode"], use_time=meta["use_time"],
+                     pos_seq_len=meta["pos_seq_len"], remat=True, device=dev,
+                     compute_dtype=torch.float32)
+    model.load_state_dict(blob["params"])
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    opt.load_state_dict(copy.deepcopy(blob["opt_state"]))
+    dst = torch.from_numpy(RandEdgeSampler([ds.train.src],
+                                           [ds.train.dst]).dst_list).to(dev)
+    if base_type == "tgat":
+        return loops.make_base_train_step(model, g, feats, dst, 3, N_DEGREE,
+                                          opt), None
+    mem = TGNMemoryState(**{k: v.to(dev) for k, v in blob["memory"].items()})
+    return learn_tgn.make_tgn_train_step(model, g, feats, dst, N_DEGREE,
+                                         opt), mem
+
+
+def check_variant_against_cpu(ds, out, dev, base_type, name):
+    """One train step of a variant run's state on the card and on the CPU
+    at float32, the same batch and draws (dropout 0.1 where the variant has
+    dropout sites): ``compare_train_steps`` (map attention's query-side
+    score parameters as exact zeros), the logits rtol 2e-4, atol 1e-5, a
+    TGN's new memory the same (its flags exactly). Returns the logits'
+    largest difference."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    cpu = torch.device("cpu")
+    step_c, mem_c = variant_steps_on(cpu, ds, out, base_type)
+    step_g, mem_g = variant_steps_on(dev, ds, out, base_type)
+    bs = REF_BATCH if base_type == "tgn" else TGAT_REF_BATCH
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.train, bs, True, SEED + 1, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 3)
+    draws = step_c.draw(gen, bs)
+    if base_type == "tgn":
+        new_c, aux_c = step_c(mem_c, batch, draws)
+        new_g, aux_g = step_g(mem_g, to_device(batch, dev),
+                              to_device(draws, dev))
+    else:
+        aux_c = step_c(batch, draws)
+        aux_g = step_g(to_device(batch, dev), to_device(draws, dev))
+    torch.cuda.synchronize()
+    what = f"{base_type.upper()} ({name}) train step"
+    compare_train_steps(step_c, aux_c, step_g, aux_g, what,
+                        exact_zero=MAP_QUERY_SCORE)
+    err = 0.0
+    for key in ("pos", "neg"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=2e-4,
+                                   atol=1e-5)
+        err = max(err, (aux_g[key].cpu() - aux_c[key]).abs().max().item())
+    if base_type == "tgn":
+        for field, a, b in zip(new_c._fields, new_g, new_c):
+            if a.dtype == torch.bool:
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{what}: memory {field} differs")
+            else:
+                torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=1e-5)
+    say(f"  {what}: logits agree to {err:.3e}"
+        + ("; the new memory agrees" if base_type == "tgn" else ""))
+    return err
+
+
+def profile_variant(ds, out, dev, base_type, n_steps=10):
+    """``n_steps`` train steps of a variant run's state as the driver runs
+    them (a TGN's projections in bf16), traced."""
+    import torch
+    from tempme_tpu_torch.train import loops
+    step, mem = variant_steps_on(dev, ds, out, base_type, torch.bfloat16)
+    bs = BATCH if base_type == "tgn" else TGAT_BATCH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    batches = loops.stack_batches(ds.train, bs, True, SEED + 4, dev)
+    n_steps = min(n_steps, batches.src.shape[0])
+    work = [(loops.Batch(*(x[i] for x in batches)), step.draw(gen, bs))
+            for i in range(n_steps)]
+    state = [mem]
+
+    def run(i):
+        if mem is None:
+            step(*work[i])
+        else:
+            state[0], _ = step(state[0], *work[i])
+    run(0)                                   # warm up off the window
+    profile_steps(run, n_steps)
+
+
+def refused_explain(ds_dir, ckpt_dir, out):
+    """``python -m tempme_tpu_torch.train.temp_exp_main`` on a TGAT that is
+    not attn/prod: it must exit non-zero with the refusal's message."""
+    argv = [sys.executable, "-m", "tempme_tpu_torch.train.temp_exp_main",
+            *explain_argv(ds_dir, ckpt_dir, out, base_type="tgat",
+                          data=VARIANT_DATA)]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    reason = "the explainer needs a TGAT with --agg_method attn"
+    if proc.returncode == 0 or reason not in proc.stderr:
+        raise AssertionError(f"temp_exp_main on TGAT (b) exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    said = next(line for line in proc.stderr.splitlines() if reason in line)
+    say(f"  temp_exp_main --base_type tgat on TGAT (b) exited "
+        f"{proc.returncode} in {time.perf_counter() - t0:.2f} s: {said}")
+
+
+def check_sampler_modes(ds, dev, torch):
+    """[sampler-modes]: exp-decay (``bias`` = 1 / the median gap between a
+    node's consecutive train events, as the source side of
+    ``compute_time_statistics`` takes them) and binary ``sample_neighbors``
+    at Q 2,000, n 20 on the card against the CPU, the same Gumbels: ids,
+    edge ids and timestamps bit for bit. Returns their numbers."""
+    import numpy as np
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.ops import sampler as S
+    q, n = 2000, N_DEGREE
+    tr = ds.train
+    order = np.lexsort((tr.ts, tr.src))
+    same = tr.src[order][1:] == tr.src[order][:-1]
+    gaps = np.diff(tr.ts[order].astype(np.float64))[same]
+    bias = 1.0 / float(np.median(gaps[gaps > 0]))
+    r = np.random.RandomState(SEED + 5)
+    pick = r.randint(0, len(tr), q)
+    nodes = np.where(r.rand(q) < 0.5, tr.src[pick], tr.dst[pick])
+    nodes = torch.from_numpy(nodes.astype(np.int32))
+    times = torch.from_numpy(tr.ts[pick].astype(np.float32))
+    cpu = torch.device("cpu")
+    g_c = build_temporal_graph(tr, ds.full.num_nodes, ds.full.num_edges,
+                               device=cpu)
+    g_g = build_temporal_graph(tr, ds.full.num_nodes, ds.full.num_edges,
+                               device=dev)
+    chunks = S.decay_chunks(g_c, nodes, times)
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 6)
+    gumbel = S.draw_gumbel(gen, chunks, q, n, cpu)
+    gumbel_g, nodes_g, times_g = (x.to(dev) for x in (gumbel, nodes, times))
+    numbers = dict(bias=bias, chunks=chunks, q=q, n=n)
+    for method in ("multinomial", "binary"):
+        def run(g, gu, no, ti):
+            return S.sample_neighbors(g, gu, no, ti, n, bias=bias,
+                                      sample_method=method)
+        want = run(g_c, gumbel, nodes, times)
+        got = run(g_g, gumbel_g, nodes_g, times_g)
+        for field, a, b in zip(("node", "eid", "ts"), got, want):
+            differ = (a.cpu() != b).any(dim=1).nonzero().flatten()
+            if len(differ):
+                raise AssertionError(
+                    f"{method} sampling: {field} differs from the CPU in "
+                    f"rows {differ[:20].tolist()} (of {len(differ)})")
+        ms = eager_ms(lambda: run(g_g, gumbel_g, nodes_g, times_g))
+        t0 = time.perf_counter()
+        run(g_c, gumbel, nodes, times)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        valid = float((want[0] != 0).float().mean())
+        numbers[method] = dict(card_ms=ms, cpu_ms=cpu_ms, filled=valid)
+        say(f"  {method} (bias {bias:.6g}): ids, edge ids and timestamps "
+            f"bit for bit equal to the CPU's over {chunks} chunks of 128; "
+            f"{valid:.4f} of the slots filled; card {ms:.3f} ms, CPU "
+            f"{cpu_ms:.1f} ms")
+    return numbers
+
+
+def variant_phases(work, ds_dir, dev, torch):
+    """[variants-data], [tgn-variants], [tgat-variants],
+    [variants-reference], [variants-explain] and [sampler-modes]. Returns
+    (launches per path, numbers)."""
+    from tempme_tpu_torch.data.events import load_dataset
+    t0 = time.perf_counter()
+    write_stream(ds_dir, VARIANT_DATA, VARIANT_EVENTS, trim_nodes=True)
+    ds = load_dataset(VARIANT_DATA, ds_dir)
+    say(f"[variants-data] the first {VARIANT_EVENTS} events of the stream "
+        f"as ml_{VARIANT_DATA}, the node table trimmed to its "
+        f"{ds.full.num_nodes} ids (written in "
+        f"{time.perf_counter() - t0:.2f} s; train {len(ds.train)}, val "
+        f"{len(ds.val)}, test {len(ds.test)} events), width 172")
+    launches, numbers, outs = {}, {}, {}
+    say(f"[tgn-variants] learn_base.main --base_type tgn, one epoch each at "
+        f"batch {BATCH}, {N_DEGREE} neighbours, dropout {DROPOUT}, then "
+        f"--eval_only: (a) {' '.join(TGN_VARIANTS['a'])}; (b) "
+        f"{' '.join(TGN_VARIANTS['b'])}; (c) {' '.join(TGN_VARIANTS['c'])}")
+    for base_type, variants in (("tgn", TGN_VARIANTS),
+                                ("tgat", TGAT_VARIANTS)):
+        if base_type == "tgat":
+            say(f"[tgat-variants] learn_base.main --base_type tgat at its "
+                f"defaults (3 layers, 2 heads, batch {TGAT_BATCH}), "
+                f"{N_DEGREE} neighbours, dropout {DROPOUT}, one epoch each, "
+                f"then --eval_only: (a) {' '.join(TGAT_VARIANTS['a'])}; (b) "
+                f"{' '.join(TGAT_VARIANTS['b'])}; (c) "
+                f"{' '.join(TGAT_VARIANTS['c'])}")
+        tot = {}
+        for name, flags in variants.items():
+            say(f"  {base_type.upper()} ({name}) {' '.join(flags)}")
+            out = os.path.join(work, f"variant_{base_type}_{name}")
+            outs[(base_type, name)] = out
+            got, numbers[f"{base_type}-{name}"] = variant_train(
+                ds, ds_dir, out, dev, torch, base_type, name, flags)
+            tot = {k: tot.get(k, 0) + v for k, v in got.items()}
+        launches[f"{base_type}-variants"] = tot
+    say(f"[variants-reference] one train step of each of the six runs on "
+        f"the card against the CPU from its train state at float32 (batch "
+        f"{REF_BATCH} for a TGN, {TGAT_REF_BATCH} for a 3-layer TGAT; "
+        f"dropout {DROPOUT} where the variant has dropout sites): loss rtol "
+        f"1e-4; logits rtol 2e-4, atol 1e-5; gradients rtol 1e-3, atol 1e-4 "
+        f"of the tensor's largest; params after Adam rtol 1e-5, atol 1e-6 "
+        f"where settled, within lr elsewhere; a TGN's memory rtol 2e-4, "
+        f"atol 1e-5")
+    numbers["reference_logit_err"] = max(
+        check_variant_against_cpu(ds, out, dev, *key)
+        for key, out in outs.items())
+    say("[trace-variants] torch.profiler over 10 train steps of each run "
+        "(not counted above)")
+    for (base_type, name), out in outs.items():
+        say(f"  {base_type.upper()} ({name})")
+        profile_variant(ds, out, dev, base_type)
+    say(f"[variants-explain] temp_exp_main.main on TGN (a) (one epoch, "
+        f"batch {EXPLAIN_BATCH}, 60 walks a side); enhance_main.main on "
+        f"TGN (b) (one epoch at its defaults); temp_exp_main on TGAT (b), "
+        f"which must refuse")
+    ckpt_a = os.path.join(outs[("tgn", "a")], "params")
+    launches["variants-explain"], numbers["explain-tgn-a"], _, _ = explain(
+        ds, ds_dir, ckpt_a, os.path.join(work, "variant_explain"), torch,
+        data=VARIANT_DATA, resume_step=VARIANT_EXPLAIN_RESUME_STEP)
+    launches["variants-enhance"], numbers["enhance-tgn-b"], _, _ = enhance(
+        ds, ds_dir, os.path.join(outs[("tgn", "b")], "params"),
+        os.path.join(work, "variant_enhance"), torch, "tgn",
+        data=VARIANT_DATA, per_step=ENHANCE_PER_STEP["graphmixer"])
+    refused_explain(ds_dir, os.path.join(outs[("tgat", "b")], "params"),
+                    os.path.join(work, "variant_refused"))
+    say(f"[sampler-modes] exp-decay and binary sample_neighbors at Q 2000, "
+        f"n {N_DEGREE} on ml_{VARIANT_DATA}'s train graph, on the card "
+        f"against the CPU with the same Gumbels: bit for bit")
+    numbers["sampler-modes"] = check_sampler_modes(ds, dev, torch)
+    return launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tempme_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -3411,25 +3899,36 @@ def main():
             "1e-4 of the tensor's largest; params after Adam rtol 1e-5, "
             "atol 1e-6; memory rtol 2e-4, atol 1e-5")
         check_train_against_cpu(ds, os.path.join(work, "train"), dev)
-        ckpt_dir = os.path.join(work, "train", "params")
+        from tempme_tpu_torch.data.events import load_dataset
+        t0 = time.perf_counter()
+        write_stream(ds_dir, TGAT_DATA, TGAT_EVENTS)
+        ds30 = load_dataset(TGAT_DATA, ds_dir)
+        cut_s = time.perf_counter() - t0
+        ckpt_dir = explain_base_dir(work, os.path.join(work, "train",
+                                                       "params"))
         say(f"[explain] temp_exp_main.main on the frozen TGN of [train] "
-            f"(load_base, bf16 projections): one epoch, batch "
+            f"(load_base, bf16 projections) over the first {TGAT_EVENTS} "
+            f"events of the stream, ml_{EXPLAIN_DATA} (written in "
+            f"{cut_s:.2f} s; train {len(ds30.train)}, val {len(ds30.val)}, "
+            f"test {len(ds30.test)} events): one epoch, batch "
             f"{EXPLAIN_BATCH}, {N_DEGREE} neighbours, 3 walk continuations "
             f"(60 walks, 180 walk event slots a side), out_dim 40, hid_dim "
             f"64, dropout {DROPOUT}, Adam lr {LR}, then val and test with "
             f"fidelity and the 16-ratio sweep")
         explain_launches, explain_numbers, results_path, snapshot = explain(
-            ds, ds_dir, ckpt_dir, os.path.join(work, "explain"), torch)
+            ds30, ds_dir, ckpt_dir, os.path.join(work, "explain"), torch,
+            data=EXPLAIN_DATA)
         say(f"[explain-resume] --resume from the state of a run stopped "
             f"right after its --ckpt_every_steps {EXPLAIN_RESUME_STEP} "
             f"checkpoint, to the end of the epoch")
         t0 = time.perf_counter()
         explain_resume(ds_dir, ckpt_dir,
-                       os.path.join(work, "explain_resume"), snapshot)
+                       os.path.join(work, "explain_resume"), snapshot,
+                       data=EXPLAIN_DATA)
         say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
         say("[explain-eval-only] --eval_only on the saved explainer")
         explain_eval_only(ds_dir, ckpt_dir, os.path.join(work, "explain_eval"),
-                          results_path)
+                          results_path, data=EXPLAIN_DATA)
         say(f"[explain-reference] one explainer train step (batch "
             f"{EXPLAIN_BATCH}, dropout {DROPOUT}, injected draws) and one "
             f"eval step on the card against the CPU, the base at float32: "
@@ -3437,26 +3936,19 @@ def main():
             f"largest; params after Adam rtol 1e-5, atol 1e-6 where the "
             f"gradient is settled (1e-4 of the largest and 1e-5), within lr "
             f"elsewhere; logits and the 16-ratio sweep rtol 2e-4, atol 1e-5")
-        check_explainer_against_cpu(ds, ckpt_dir, dev)
+        check_explainer_against_cpu(ds30, ckpt_dir, dev, data=EXPLAIN_DATA)
         say("[trace-explain] torch.profiler over 20 explainer train steps at "
             f"batch {EXPLAIN_BATCH} (not counted above)")
-        profile_explainer(ds, ckpt_dir, dev)
+        profile_explainer(ds30, ckpt_dir, dev, data=EXPLAIN_DATA)
         say("[trace-train] torch.profiler over 20 train steps at batch "
             f"{BATCH} (not counted above)")
         profile_training(ds, os.path.join(work, "train"), dev)
 
-        from tempme_tpu_torch.data.events import load_dataset
-        t0 = time.perf_counter()
-        write_stream(ds_dir, TGAT_DATA, TGAT_EVENTS)
-        ds30 = load_dataset(TGAT_DATA, ds_dir)
         tgat_out = os.path.join(work, "tgat")
         say(f"[tgat-train] learn_base.main at its default flags (TGAT, 3 "
             f"layers, 2 heads, the deep-TGAT batch {TGAT_BATCH}, dropout "
             f"{DROPOUT}, Adam lr {LR}), {N_DEGREE} neighbours, width 172 "
-            f"(d_k 258), one epoch on the first {TGAT_EVENTS} events of the "
-            f"stream in the ml_{TGAT_DATA} layout (written in "
-            f"{time.perf_counter() - t0:.2f} s; train {len(ds30.train)}, "
-            f"val {len(ds30.val)}, test {len(ds30.test)} events)")
+            f"(d_k 258), one epoch on ml_{TGAT_DATA}")
         tgat_launches, _, tgat_numbers, tgat_snap = tgat_train(
             ds30, ds_dir, tgat_out, torch)
         say(f"[tgat-resume] --resume from the state of a run stopped right "
@@ -3508,6 +4000,8 @@ def main():
         cache_launches, cache_numbers = cache_phases(
             work, ds_dir, dev, torch, explain_numbers["train_ms_per_step"])
         pipeline_numbers = pipeline_phase(work, ds_dir, torch)
+        variant_launches, variant_numbers = variant_phases(
+            work, ds_dir, dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
@@ -3517,12 +4011,13 @@ def main():
     for path, nums in {**enhance_numbers, **cache_numbers}.items():
         say(f"  {path} cell: {json.dumps(nums)}")
     say(f"  pipeline cell: {json.dumps(pipeline_numbers)}")
+    say(f"  variants cells: {json.dumps(variant_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
                "mixer-explain": mx_launches, **enhance_launches,
-               **cache_launches}
+               **cache_launches, **variant_launches}
     tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
                 "attend": "attend tgat m=12800 dk=258 bfloat16",
                 "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",

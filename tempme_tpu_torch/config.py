@@ -158,17 +158,6 @@ def add_model_args(p):
     return p
 
 
-def check_tgat_variant(agg_method: str, attn_mode: str, use_time: str):
-    """Refuse the TGAT variants the port does not have yet: only
-    ``attn``/``prod``/``time`` runs; the others raise, naming ROADMAP item
-    A10 (none is replaced by another quietly)."""
-    variant = (agg_method, attn_mode, use_time)
-    if variant != ("attn", "prod", "time"):
-        raise NotImplementedError(
-            f"TGAT variant agg_method/attn_mode/use_time = {variant} is not "
-            "ported yet (ROADMAP item A10)")
-
-
 def add_explainer_args(p):
     """Explainer flags (the reference's temp_exp_main.py:30-53)."""
     p.add_argument("--out_dim", type=int, default=40)

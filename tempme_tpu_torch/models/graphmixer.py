@@ -20,9 +20,10 @@ per side gate each block at its three points, the mixed tokens and the
 node branch's scores (the TempME hook); ``ratio_contrast`` scores the
 explainer's fidelity sweep under R hop-0 keep masks at once. Weights are
 made on the CPU from ``seed`` with the JAX package's initialisers, then
-moved to ``device``. The ``edge_attr`` input of the JAX model (hop-0 edge
-features given from outside) is on no caller's path and is not ported
-(ROADMAP A4).
+moved to ``device``. ``edge_attr`` [B, n, De] per side gives the hop-0
+edge features from outside in place of the support's; its padded slots are
+then taken as given, not zeroed (the time part still is), as in the JAX
+model.
 """
 from __future__ import annotations
 
@@ -76,8 +77,10 @@ class GraphMixer(nn.Module):
     def _tokens(self, feats: Features, cut_time, sub: Subgraph):
         """The projection's input [B, n, edge_dim + time_dim], unmasked."""
         e_feat = gather_rows(feats.edge, sub.eids[0])
-        t_feat = self.time_encoder(cut_time[:, None] - sub.ts[0])
-        return torch.cat([e_feat, t_feat], dim=-1)
+        return torch.cat([e_feat, self._time_tokens(cut_time, sub)], dim=-1)
+
+    def _time_tokens(self, cut_time, sub: Subgraph):
+        return self.time_encoder(cut_time[:, None] - sub.ts[0])
 
     def _node_part(self, feats: Features, nodes, ngh, invalid, exp=None):
         """The anchors' features plus the mean over n of the neighbours'
@@ -92,16 +95,22 @@ class GraphMixer(nn.Module):
 
     def node_embed(self, feats: Features, nodes, cut_time, sub: Subgraph,
                    explain_weights: Optional[torch.Tensor] = None,
-                   drop: Sequence[MixerDraws] | None = None) -> torch.Tensor:
+                   drop: Sequence[MixerDraws] | None = None,
+                   edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B] anchors -> [B, node_dim]. ``explain_weights`` [B, n] hop-0
         edge weights (zeroed at the padding) or None; ``drop`` one
-        ``MixerDraws`` per block (training) or None (eval)."""
+        ``MixerDraws`` per block (training) or None (eval); ``edge_attr``
+        [B, n, De] hop-0 edge features given from outside, or None."""
         ngh = sub.nodes[0]
         pad = (ngh == 0)[..., None]
         exp = None if explain_weights is None else \
             torch.where(ngh == 0, 0.0, explain_weights)
-        x = self.projection(torch.where(pad, 0.0,
-                                        self._tokens(feats, cut_time, sub)))
+        if edge_attr is None:
+            tokens = torch.where(pad, 0.0, self._tokens(feats, cut_time, sub))
+        else:
+            tokens = torch.cat([edge_attr, torch.where(
+                pad, 0.0, self._time_tokens(cut_time, sub))], dim=-1)
+        x = self.projection(tokens)
         for i, mixer in enumerate(self.mixers):
             x = mixer(x, exp, None if drop is None else drop[i])
         x = torch.where(pad, 0.0, x)
@@ -146,24 +155,28 @@ class GraphMixer(nn.Module):
 
     def get_node_emb(self, feats: Features, src, tgt, bgd, cut_time,
                      sub_src, sub_tgt, sub_bgd, explain_weights=None,
-                     drop=None):
-        """(src, tgt, bgd) embeddings; ``explain_weights`` and ``drop`` per
-        side or None."""
+                     drop=None, edge_attr=None):
+        """(src, tgt, bgd) embeddings; ``explain_weights``, ``drop`` and
+        ``edge_attr`` per side or None."""
         exp = explain_weights or (None, None, None)
         drop = drop or (None, None, None)
-        return tuple(self.node_embed(feats, a, cut_time, s, e, d)
-                     for a, s, e, d in ((src, sub_src, exp[0], drop[0]),
-                                        (tgt, sub_tgt, exp[1], drop[1]),
-                                        (bgd, sub_bgd, exp[2], drop[2])))
+        attr = edge_attr or (None, None, None)
+        return tuple(self.node_embed(feats, a, cut_time, s, e, d, ea)
+                     for a, s, e, d, ea in (
+                         (src, sub_src, exp[0], drop[0], attr[0]),
+                         (tgt, sub_tgt, exp[1], drop[1], attr[1]),
+                         (bgd, sub_bgd, exp[2], drop[2], attr[2])))
 
     def contrast(self, feats: Features, src, tgt, bgd, cut_time,
                  sub_src: Subgraph, sub_tgt: Subgraph, sub_bgd: Subgraph,
-                 explain_weights=None, drop=None):
+                 explain_weights=None, drop=None, edge_attr=None):
         """(pos [B, 1], neg [B, 1]) affinity logits. ``explain_weights``:
         (exp_src, exp_tgt, exp_bgd), each [B, n] or None; ``drop``: per
-        side the ``MixerDraws`` of its blocks, or None (eval)."""
+        side the ``MixerDraws`` of its blocks, or None (eval);
+        ``edge_attr``: per side [B, n, De] or None."""
         s, t, g = self.get_node_emb(feats, src, tgt, bgd, cut_time, sub_src,
-                                    sub_tgt, sub_bgd, explain_weights, drop)
+                                    sub_tgt, sub_bgd, explain_weights, drop,
+                                    edge_attr)
         return self.affinity_score(s, t), self.affinity_score(s, g)
 
     forward = contrast

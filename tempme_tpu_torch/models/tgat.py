@@ -1,9 +1,7 @@
 """TGAT: temporal graph attention over a k-hop support pyramid, in training,
 eval and explained form, with the explainer's ratio sweep.
 
-Port of ``tempme_tpu/models/tgat.py`` in its default variant
-(``agg_method="attn"``, ``attn_mode="prod"``, ``use_time="time"``; the
-others raise, naming ROADMAP item A10). The support has hop widths n, n**2,
+Port of ``tempme_tpu/models/tgat.py``. The support has hop widths n, n**2,
 ..., n**k for k layers; at stack layer l every remaining pyramid level i
 aggregates its children (level i + 1) through layer l's 1 x n temporal
 attention (``ops/attention.py``, the ``attend`` kernel) and a gated merge.
@@ -30,6 +28,17 @@ attention probability (the TempME hook); ``ratio_contrast`` scores the
 explainer's fidelity sweep under R keep masks at once. Weights are made on
 the CPU from ``seed`` with the JAX package's initialisers, then moved to
 ``device``.
+
+The variant flags are the JAX model's: ``agg_method`` "attn" | "lstm" |
+"mean", ``attn_mode`` "prod" | "map" (for "attn"), ``use_time`` "time" |
+"pos" | "empty" (``ops/encodings.py``; "pos" ranks the children of each
+parent among themselves, so ``pos_seq_len`` must be at least n). The
+attn/prod blocks are the split-projection path above, whatever
+``use_time``. The others (map attention, the LSTM and mean pools,
+``ops/aggregators.py``) read the raw per-level [node, edge, time]
+features in float32 (``_node_embed_raw``), are never checkpointed, and
+have no ratio sweep: the explainer refuses such a base. Map attention
+takes two dropout draws a block; the pools take none.
 """
 from __future__ import annotations
 
@@ -39,9 +48,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import check_tgat_variant
+from ..ops.aggregators import LSTMPool, MapAttnLayer, MeanPool
 from ..ops.attention import AttnDraws, SplitTemporalAttention
-from ..ops.encodings import TimeEncode
+from ..ops.encodings import make_time_encoder
 from ..ops.gather import gather_rows
 from ..ops.layers import ConcatMerge, GatedMerge
 from ..ops.sampler import Subgraph
@@ -114,30 +123,62 @@ class TGAT(nn.Module):
     def __init__(self, node_dim: int, edge_dim: int, num_layers: int = 3,
                  n_head: int = 2, dropout: float = 0.1,
                  agg_method: str = "attn", attn_mode: str = "prod",
-                 use_time: str = "time", remat: bool = False, device=None,
-                 seed: int = 0, compute_dtype: torch.dtype = torch.bfloat16):
+                 use_time: str = "time", pos_seq_len: int = 1024,
+                 remat: bool = False, device=None, seed: int = 0,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        check_tgat_variant(agg_method, attn_mode, use_time)
         dev = resolve_device(device)
         self.node_dim, self.edge_dim = node_dim, edge_dim
         self.time_dim = node_dim
         self.num_layers, self.n_head = num_layers, n_head
         self.dropout, self.remat = dropout, remat
+        self.agg_method, self.attn_mode = agg_method, attn_mode
+        self.use_time = use_time
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.time_encoder = TimeEncode(self.time_dim)
-            self.attn_layers = nn.ModuleList([
-                TGATAttnLayer(node_dim, edge_dim, self.time_dim, n_head,
-                              dropout, compute_dtype)
-                for _ in range(num_layers)])
+            self.time_encoder = make_time_encoder(use_time, self.time_dim,
+                                                  seq_len=pos_seq_len)
+            if agg_method == "attn" and attn_mode == "prod":
+                def block():
+                    return TGATAttnLayer(node_dim, edge_dim, self.time_dim,
+                                         n_head, dropout, compute_dtype)
+            elif agg_method == "attn" and attn_mode == "map":
+                def block():
+                    return MapAttnLayer(node_dim, edge_dim, self.time_dim,
+                                        n_head, dropout)
+            elif agg_method == "lstm":
+                def block():
+                    return LSTMPool(node_dim, edge_dim, self.time_dim)
+            elif agg_method == "mean":
+                def block():
+                    return MeanPool(node_dim, edge_dim)
+            else:
+                raise ValueError(f"invalid agg_method/attn_mode: "
+                                 f"{agg_method}/{attn_mode}")
+            self.attn_layers = nn.ModuleList([block()
+                                              for _ in range(num_layers)])
             self.affinity_score = ConcatMerge(2 * node_dim, node_dim, 1)
         self.to(dev)
+
+    @property
+    def uses_split_attention(self) -> bool:
+        """The attn/prod blocks: the split projections and the ``attend``
+        kernel; the explainer's weights and ratio sweep need them."""
+        return self.agg_method == "attn" and self.attn_mode == "prod"
 
     def dropout_shapes(self, batch_size: int, n: int):
         """The shapes of one embedding call's dropout draws, per block in
         (layer, level) order: the probabilities' ``[B * n**i, h, n]`` and
-        ``fc``'s ``[B, n**i, d_model]``."""
+        ``fc``'s ``[B, n**i, d_model]`` (map attention: ``[B * n**i, 1, h,
+        n]`` and ``[B * n**i, 1, d_model]``); none for the pools."""
+        if self.agg_method != "attn":
+            return []
         d_model = self.node_dim + self.edge_dim + self.time_dim
+        if self.attn_mode == "map":
+            return [((batch_size * n ** i, 1, self.n_head, n),
+                     (batch_size * n ** i, 1, d_model))
+                    for layer in range(self.num_layers)
+                    for i in range(self.num_layers - layer)]
         return [((batch_size * n ** i, self.n_head, n),
                  (batch_size, n ** i, d_model))
                 for layer in range(self.num_layers)
@@ -157,8 +198,16 @@ class TGAT(nn.Module):
             standard = t_rec
         return deltas
 
-    def _block(self, layer: int, q, d_par, child, eids, d_child, mask, ew,
-               draws, edge_kv, node_tabs):
+    def _encode_delta(self, delta, n: int, level: int):
+        """The time encoding of a level's raw dt [B, n**level]; "pos"
+        ranks each parent's n children among themselves."""
+        if self.use_time == "pos" and level > 0:
+            enc = self.time_encoder(delta.reshape(-1, n))
+            return enc.reshape(delta.shape[0], -1, enc.shape[-1])
+        return self.time_encoder(delta)
+
+    def _block(self, layer: int, level: int, q, d_par, child, eids, d_child,
+               mask, ew, draws, edge_kv, node_tabs):
         """One (layer, level) block. Stack layer 0 (``node_tabs`` = the raw
         node table and its projected key and value tables) takes node ids
         ``q`` and ``child``; deeper layers take the computed embeddings.
@@ -172,9 +221,10 @@ class TGAT(nn.Module):
             k_nv, v_nv = lay.attn.project_node(child)
         k_ev = gather_rows(edge_kv[0], eids)
         v_ev = gather_rows(edge_kv[1], eids)
-        return lay(q, self.time_encoder(d_par), k_nv, v_nv, k_ev, v_ev,
-                   self.time_encoder(d_child), mask, explain_weight=ew,
-                   draws=draws)
+        n = d_child.shape[1] // d_par.shape[1]
+        return lay(q, self._encode_delta(d_par, n, level), k_nv, v_nv, k_ev,
+                   v_ev, self._encode_delta(d_child, n, level + 1), mask,
+                   explain_weight=ew, draws=draws)
 
     def _run_block(self, *args):
         if self.remat and torch.is_grad_enabled():
@@ -187,6 +237,9 @@ class TGAT(nn.Module):
         """[B] anchors -> [B, node_dim]. ``explain_weights``: per hop a
         [B, n**(h+1)] weight or None; ``drop``: one ``AttnDraws`` per block
         (training) or None (eval)."""
+        if not self.uses_split_attention:
+            return self._node_embed_raw(feats, src, cut_time, sub,
+                                        explain_weights, drop)
         n = sub.nodes[0].shape[1]
         levels = [src[:, None]] + list(sub.nodes)
         masks = [nodes == 0 for nodes in sub.nodes]
@@ -206,9 +259,43 @@ class TGAT(nn.Module):
                 q, child = (levels[i], levels[i + 1]) if hidden is None \
                     else (hidden[i], hidden[i + 1])
                 new_hidden.append(self._run_block(
-                    layer, q, deltas[i], child, sub.eids[i], deltas[i + 1],
-                    masks[i], ew, None if draws is None else next(draws),
-                    edge_kv, node_tabs))
+                    layer, i, q, deltas[i], child, sub.eids[i],
+                    deltas[i + 1], masks[i], ew,
+                    None if draws is None else next(draws), edge_kv,
+                    node_tabs))
+            hidden = new_hidden
+        return hidden[0].squeeze(1)
+
+    def _node_embed_raw(self, feats: Features, src, cut_time, sub: Subgraph,
+                        explain_weights=None, drop=None) -> torch.Tensor:
+        """``node_embed`` through map attention or a pool: every block
+        reads the raw per-level features, [B * n**i] parents with n
+        children each, in (layer, level) order."""
+        n = sub.nodes[0].shape[1]
+        b = src.shape[0]
+        levels = [src[:, None]] + list(sub.nodes)
+        deltas = self._time_deltas(cut_time, sub, n)
+        tfeat = [self._encode_delta(d, n, i) for i, d in enumerate(deltas)]
+        draws = iter(drop) if drop is not None else iter(())
+        hidden = [gather_rows(feats.node, lv) for lv in levels]
+        for layer in range(self.num_layers):
+            lay = self.attn_layers[layer]
+            new_hidden = []
+            for i in range(self.num_layers - layer):
+                bq = b * hidden[i].shape[1]
+                ew = None
+                if explain_weights is not None and \
+                        explain_weights[i] is not None:
+                    ew = explain_weights[i].reshape(bq, n)
+                out, _ = lay(hidden[i].reshape(bq, -1),
+                             tfeat[i].reshape(bq, 1, -1),
+                             hidden[i + 1].reshape(bq, n, -1),
+                             tfeat[i + 1].reshape(bq, n, -1),
+                             gather_rows(feats.edge, sub.eids[i]).reshape(
+                                 bq, n, -1),
+                             sub.nodes[i].reshape(bq, n) == 0,
+                             explain_weight=ew, draws=next(draws, None))
+                new_hidden.append(out.reshape(b, -1, out.shape[-1]))
             hidden = new_hidden
         return hidden[0].squeeze(1)
 
@@ -223,8 +310,9 @@ class TGAT(nn.Module):
         through the masked work at a time (all at once by default): that
         bounds the [chunk * B, n**2, D] levels of a 3-hop pyramid, and the
         shared work is done once for all chunks. Returns [R, B, node_dim]."""
-        if self.num_layers < 2:
-            raise ValueError("the ratio sweep needs a TGAT of 2 layers or more")
+        if self.num_layers < 2 or not self.uses_split_attention:
+            raise ValueError("the ratio sweep needs an attn/prod TGAT of 2 "
+                             "layers or more")
         n = sub.nodes[0].shape[1]
         l, b, nk = self.num_layers, anchors.shape[0], len(keeps)
         r_all = keeps[0].shape[0]
@@ -239,13 +327,13 @@ class TGAT(nn.Module):
         shared = []                      # per level: query, its time, parts
         for i in range(l):
             q_node = gather_rows(feats.node, levels[i])
-            q_time = self.time_encoder(deltas[i])
+            q_time = self._encode_delta(deltas[i], n, i)
             shared.append((q_node, q_time, lay0.sweep_parts(
                 q_node, q_time, gather_rows(k_tab, levels[i + 1]),
                 gather_rows(v_tab, levels[i + 1]),
                 gather_rows(ke_tab, sub.eids[i]),
                 gather_rows(ve_tab, sub.eids[i]),
-                self.time_encoder(deltas[i + 1]), i >= nk)))
+                self._encode_delta(deltas[i + 1], n, i + 1), i >= nk)))
         edge_kv = [None] + [self.attn_layers[layer].attn.project_edge(
             feats.edge) for layer in range(1, l)]
 
@@ -275,7 +363,7 @@ class TGAT(nn.Module):
                        for i in range(l)]
             hidden = [h.reshape((r * b,) + h.shape[2:]) for h in hidden]
             for layer in range(1, l):
-                hidden = [self._block(layer, hidden[i], tile(deltas[i]),
+                hidden = [self._block(layer, i, hidden[i], tile(deltas[i]),
                                       hidden[i + 1], tile(sub.eids[i]),
                                       tile(deltas[i + 1]), masks_r[i], None,
                                       None, edge_kv[layer], None)

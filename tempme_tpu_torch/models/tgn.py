@@ -1,10 +1,21 @@
 """TGN with node memory, in serving and training form, and as the frozen
 base the TempME explainer explains.
 
-Port of ``tempme_tpu/models/tgn.py`` in the variant the repo ships (``params/tgnn/tgn_uslegis_sampled.msgpack``): GRU memory updater,
-``last`` message aggregator, ``mlp`` message function and
-``graph_attention`` embedding. Every other variant raises, naming ROADMAP
-item A4.
+Port of ``tempme_tpu/models/tgn.py`` with every variant of the JAX
+model: the memory updater ``gru`` (flax's ``GRUCell``) or ``rnn`` (flax's
+``SimpleCell``, ``tanh(i(x) + h(h))``); the message aggregator ``last``
+(the batch's last message per node) or ``mean`` (the mean of the batch's
+messages per node, stamped with the last one's time); the message function
+``mlp`` or ``identity`` (the raw message goes to the updater as it is);
+the embedding ``graph_attention`` (the attention pyramid over the
+support), ``identity`` (the updated memory row) or ``time`` (Jodie:
+memory * (1 + ``jodie_proj``(dt)), dt shifted and scaled by the source
+side's statistics for the source and the destination side's for the
+others). Modules a variant never calls have no parameters, as flax makes
+none for them: an identity- or time-embedding TGN has no attention
+layers, an identity message function no ``message_mlp``. The repo ships
+the gru/last/mlp/graph_attention TGN
+(``params/tgnn/tgn_uslegis_sampled.msgpack``).
 
 The memory is an explicit ``TGNMemoryState`` carried from step to step, as
 in the JAX package; every step returns a new state and leaves its input
@@ -91,6 +102,20 @@ class GRUCell(nn.Module):
         return (1.0 - z) * n + z * hx
 
 
+class SimpleCell(nn.Module):
+    """flax's ``SimpleCell``: h' = tanh(i(x) + h(h)), ``i`` with a bias,
+    ``h`` without; lecun-normal input and orthogonal recurrent kernels."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.i = dense(input_size, hidden_size)
+        self.h = dense(hidden_size, hidden_size, bias=False,
+                       init=nn.init.orthogonal_)
+
+    def forward(self, x, hx):
+        return torch.tanh(self.i(x) + self.h(hx))
+
+
 class TGNAttnLayer(nn.Module):
     """q = [feat || te(0)], k = [ngh_feat || edge || te(dt)], then a
     concat-merge back to node_dim."""
@@ -139,25 +164,36 @@ class TGNAttnLayer(nn.Module):
 
 class TGN(nn.Module):
     """Weights are made on the CPU from ``seed`` (the global RNG is left as
-    it was), then moved to ``device`` (CUDA unless ``device="cpu"``)."""
+    it was), then moved to ``device`` (CUDA unless ``device="cpu"``).
+    ``mean_time_shift`` and ``std_time_shift`` are the (source,
+    destination) statistics of the time embedding
+    (``data/events.py::compute_time_statistics``)."""
 
     def __init__(self, node_dim: int, edge_dim: int, num_nodes: int,
                  n_layers: int = 2, n_head: int = 2, dropout: float = 0.1,
                  message_dim: int = 100,
                  memory_updater: str = "gru", aggregator: str = "last",
                  message_function: str = "mlp",
-                 embedding_type: str = "graph_attention", device=None,
-                 seed: int = 0, compute_dtype: torch.dtype = torch.bfloat16):
+                 embedding_type: str = "graph_attention",
+                 mean_time_shift=(0.0, 0.0), std_time_shift=(1.0, 1.0),
+                 device=None, seed: int = 0,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        variant = (memory_updater, aggregator, message_function,
-                   embedding_type)
-        if variant != ("gru", "last", "mlp", "graph_attention"):
-            raise NotImplementedError(
-                f"TGN variant {variant} is not ported yet (ROADMAP item A4)")
+        for name, value, allowed in (
+                ("memory_updater", memory_updater, ("gru", "rnn")),
+                ("aggregator", aggregator, ("last", "mean")),
+                ("message_function", message_function, ("mlp", "identity")),
+                ("embedding_type", embedding_type,
+                 ("graph_attention", "identity", "time"))):
+            if value not in allowed:
+                raise ValueError(f"unknown {name} {value!r}")
         dev = resolve_device(device)
         self.node_dim, self.edge_dim = node_dim, edge_dim
         self.num_nodes, self.n_layers = num_nodes, n_layers
         self.dropout = dropout
+        self.aggregator, self.embedding_type = aggregator, embedding_type
+        self.mean_time_shift = tuple(float(x) for x in mean_time_shift)
+        self.std_time_shift = tuple(float(x) for x in std_time_shift)
         self.memory_dim = self.time_dim = node_dim
         self.raw_message_dim = 2 * self.memory_dim + edge_dim + self.time_dim
         with torch.random.fork_rng(devices=[]):
@@ -166,21 +202,39 @@ class TGN(nn.Module):
             self.attn_layers = nn.ModuleList([
                 TGNAttnLayer(node_dim, edge_dim, self.time_dim, n_head,
                              dropout, compute_dtype)
-                for _ in range(n_layers)])
-            self.message_mlp = nn.Sequential(
-                dense(self.raw_message_dim, self.raw_message_dim // 2),
-                nn.ReLU(),
-                dense(self.raw_message_dim // 2, message_dim))
-            self.memory_updater = GRUCell(message_dim, self.memory_dim)
+                for _ in range(n_layers if self.reads_support else 0)])
+            self.message_mlp = None
+            cell_in = self.raw_message_dim
+            if message_function == "mlp":
+                self.message_mlp = nn.Sequential(
+                    dense(self.raw_message_dim, self.raw_message_dim // 2),
+                    nn.ReLU(),
+                    dense(self.raw_message_dim // 2, message_dim))
+                cell_in = message_dim
+            cell = GRUCell if memory_updater == "gru" else SimpleCell
+            self.memory_updater = cell(cell_in, self.memory_dim)
             self.affinity_score = ConcatMerge(2 * node_dim, node_dim, 1)
+            if embedding_type == "time":
+                self.jodie_proj = dense(
+                    1, node_dim, init=lambda w: nn.init.normal_(w, std=1.0))
+                with torch.no_grad():
+                    nn.init.normal_(self.jodie_proj.bias, std=1.0)
         self.to(dev)
+
+    @property
+    def reads_support(self) -> bool:
+        """Whether the embeddings read the sampled supports: only the
+        graph-attention embedding does, so the steps of the identity and
+        time embeddings sample none."""
+        return self.embedding_type == "graph_attention"
 
     def dropout_shapes(self, batch_size: int, n: int):
         """The shapes of one side's dropout draws: per attention layer (in
         the order ``_embed_chain`` runs them, deepest hop first) the
-        probabilities' ``[Bq, h, n]`` and ``fc``'s ``[Bq, 1, d_model]``."""
+        probabilities' ``[Bq, h, n]`` and ``fc``'s ``[Bq, 1, d_model]``;
+        none without attention layers."""
         out = []
-        for i in range(self.n_layers):
+        for i in range(len(self.attn_layers)):
             bq = batch_size * n ** (self.n_layers - 1 - i)
             attn = self.attn_layers[i].attn
             out.append(((bq, attn.n_head, n),
@@ -190,8 +244,9 @@ class TGN(nn.Module):
     # -- memory machinery (functional) ---------------------------------
     def updated_memory(self, state: TGNMemoryState):
         """Advance the memory rows that hold a pending message through the
-        message MLP and the GRU: (memory, last_update)."""
-        msgs = self.message_mlp(state.msg_buf)
+        message function and the updater: (memory, last_update)."""
+        msgs = state.msg_buf if self.message_mlp is None \
+            else self.message_mlp(state.msg_buf)
         new_mem = self.memory_updater(msgs, state.memory)
         valid = state.msg_valid[:, None]
         return (torch.where(valid, new_mem, state.memory),
@@ -210,8 +265,12 @@ class TGN(nn.Module):
 
     def _store_messages(self, state, src, tgt, src_emb, tgt_emb, cut_time,
                         eidx, feats: Features) -> TGNMemoryState:
-        """Raw messages, source side then destination side; the last one per
-        node wins (so the destination side wins for a node in both)."""
+        """Raw messages, source side then destination side; per node the
+        last one (so the destination side wins for a node in both), or with
+        the ``mean`` aggregator the mean of its messages, stamped with the
+        last one's time. The mean sums each node's messages as a product
+        with a 0/1 matrix, so the card gives the same result run after
+        run (no atomic adds)."""
         e_feat = feats.edge[eidx.long()]
         nodes = torch.cat([src, tgt]).long()
         t_all = torch.cat([cut_time, cut_time])
@@ -227,8 +286,16 @@ class TGN(nn.Module):
             0, nodes, pos_idx, "amax")
         has_msg = winner >= 0
         w = winner.clamp(min=0)
+        if self.aggregator == "last":
+            agg = msgs[w]
+        else:
+            uniq, inv = torch.unique(nodes, return_inverse=True)
+            onehot = (inv[None, :] == torch.arange(
+                len(uniq), device=nodes.device)[:, None]).to(msgs.dtype)
+            agg = torch.zeros_like(state.msg_buf)
+            agg[uniq] = (onehot @ msgs) / onehot.sum(dim=1, keepdim=True)
         return state._replace(
-            msg_buf=torch.where(has_msg[:, None], msgs[w].detach(),
+            msg_buf=torch.where(has_msg[:, None], agg.detach(),
                                 state.msg_buf),
             msg_ts=torch.where(has_msg, t_all[w], state.msg_ts),
             msg_valid=state.msg_valid | has_msg)
@@ -248,7 +315,10 @@ class TGN(nn.Module):
 
     def _embed_chain(self, feats: Features, memory, anchors, cut_time,
                      sub: Subgraph, drop: Sequence[AttnDraws] | None = None,
-                     explain_weights=None):
+                     explain_weights=None, edge_attr=None):
+        """The attention pyramid's embeddings [B, node_dim]. ``edge_attr``:
+        per hop the edge features [B, width, De] given from outside in
+        place of the support's own, or None."""
         b = anchors.shape[0]
         n = sub.nodes[0].shape[1]
         node_levels = [anchors[:, None]] + list(sub.nodes)
@@ -272,7 +342,11 @@ class TGN(nn.Module):
                 v_nv = gather_rows(v_tab, ngh_nodes).reshape(bq, n, -1)
             else:
                 k_nv, v_nv = layer.project_node(prev_emb.reshape(bq, n, -1))
-            e_raw = gather_rows(feats.edge, sub.eids[t - 1]).reshape(bq, n, -1)
+            if edge_attr is not None:
+                e_raw = edge_attr[t - 1].reshape(bq, n, -1)
+            else:
+                e_raw = gather_rows(feats.edge, sub.eids[t - 1]).reshape(
+                    bq, n, -1)
             k_ev, v_ev = layer.project_edge(e_raw)
             e_t = tfeats[t - 1].reshape(bq, n, -1)
             mask = (ngh_nodes == 0).reshape(bq, n)
@@ -291,8 +365,10 @@ class TGN(nn.Module):
         encodings are computed once; the hop-1 level runs as
         ``multi_mask`` and the hop-0 level folds R into the batch of the
         ``attend`` kernel (R * B rows). Returns [R, B, node_dim]."""
-        if self.n_layers != 2 or len(sub.nodes) < 2:
-            raise ValueError("the ratio sweep needs a 2-layer TGN and 2 hops")
+        if self.n_layers != 2 or len(sub.nodes) < 2 or \
+                not self.reads_support:
+            raise ValueError("the ratio sweep needs a 2-layer "
+                             "graph-attention TGN and 2 hops")
         b = anchors.shape[0]
         n = sub.nodes[0].shape[1]
         r = keeps[0].shape[0]
@@ -356,7 +432,7 @@ class TGN(nn.Module):
     def get_node_emb(self, feats: Features, state: TGNMemoryState,
                      src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
                      sub_bgd, drop=None, explain_weights=None,
-                     update_memory: bool = True):
+                     update_memory: bool = True, edge_attr=None):
         """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
         the embeddings, then (``update_memory``) the positives persisted and
         the batch's messages stored; with ``update_memory=False`` the state
@@ -364,15 +440,32 @@ class TGN(nn.Module):
         side (src, tgt, bgd) one ``AttnDraws`` per layer (training), or
         None (eval). ``explain_weights``: per side a per-hop list of
         [B, width] float32 weights on the support edges' attention
-        probabilities, or None."""
+        probabilities, or None. ``edge_attr``: per side a per-hop list of
+        edge features replacing the support's, or None. The identity and
+        time embeddings read neither the supports (which may be None),
+        the draws nor these two."""
         upd_memory, upd_last = self.updated_memory(state)
         drop = drop or (None, None, None)
         ew = explain_weights or (None, None, None)
+        ea = edge_attr or (None, None, None)
+
+        def embed(side, anchors, sub):
+            if self.embedding_type == "identity":
+                return upd_memory[anchors.long()]
+            if self.embedding_type == "time":
+                k = min(side, 1)        # the source's statistics, else dst's
+                td = (cut_time - upd_last[anchors.long()]
+                      - self.mean_time_shift[k]) / self.std_time_shift[k]
+                return upd_memory[anchors.long()] * (
+                    1.0 + self.jodie_proj(td[:, None]))
+            return self._embed_chain(feats, upd_memory, anchors, cut_time,
+                                     sub, drop[side], ew[side], ea[side])
+
         src_emb, tgt_emb, bgd_emb = (
-            self._embed_chain(feats, upd_memory, anchors, cut_time, sub, d, w)
-            for anchors, sub, d, w in ((src, sub_src, drop[0], ew[0]),
-                                       (tgt, sub_tgt, drop[1], ew[1]),
-                                       (bgd, sub_bgd, drop[2], ew[2])))
+            embed(i, anchors, sub)
+            for i, (anchors, sub) in enumerate(((src, sub_src),
+                                                (tgt, sub_tgt),
+                                                (bgd, sub_bgd))))
         if update_memory:
             state = self._persist_positives(state, upd_memory, upd_last,
                                             torch.cat([src, tgt]))
@@ -382,11 +475,12 @@ class TGN(nn.Module):
 
     def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
                  bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None,
-                 explain_weights=None, update_memory: bool = True):
+                 explain_weights=None, update_memory: bool = True,
+                 edge_attr=None):
         """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
         (s, t, b), state = self.get_node_emb(
             feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-            sub_bgd, drop, explain_weights, update_memory)
+            sub_bgd, drop, explain_weights, update_memory, edge_attr)
         return (self.affinity_score(s, t), self.affinity_score(s, b)), state
 
     forward = contrast

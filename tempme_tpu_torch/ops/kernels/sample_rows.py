@@ -48,6 +48,14 @@ def cut_by_edge(g, nodes, eids):
     return start, torch.where((nodes == 0) | (eids == 0), 0, cut)
 
 
+def cut_history(g, nodes, times, eids=None):
+    """(start, cut) of each query's history: before ``times``, or with
+    ``eids`` before each edge's timestamp (``cut_by_edge``)."""
+    if eids is None:
+        return cut_by_time(g, nodes, times)
+    return cut_by_edge(g, nodes, eids)
+
+
 def uniform_pick(u, cut):
     """[Q, n] uniforms and [Q] cuts -> [Q, n] sorted picks in [0, cut)
     (0 where cut == 0), with the JAX package's float32 arithmetic."""
@@ -60,10 +68,7 @@ def uniform_pick(u, cut):
 def sample_rows_plain(g, nodes, times, u, eids=None):
     """The plain PyTorch version: ([Q,n] int32 node, [Q,n] int32 eid,
     [Q,n] float32 ts)."""
-    if eids is None:
-        start, cut = cut_by_time(g, nodes, times)
-    else:
-        start, cut = cut_by_edge(g, nodes, eids)
+    start, cut = cut_history(g, nodes, times, eids)
     idx = uniform_pick(u, cut)
     pos = (start[:, None] + idx).clamp(max=max(g.ngh_ts.shape[0] - 1, 0))
     valid = cut[:, None] > 0

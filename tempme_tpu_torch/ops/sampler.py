@@ -1,13 +1,23 @@
-"""Temporal neighbour sampling (uniform mode), the k-hop support and the
-3-event temporal motif walks.
+"""Temporal neighbour sampling, the k-hop support and the 3-event temporal
+motif walks.
 
-Port of ``tempme_tpu/ops/sampler.py:61-225,264-289,524-604``. Random draws
+Port of ``tempme_tpu/ops/sampler.py:61-289,524-604``. Random draws
 enter as tensors so that a test can replay ``jax.random`` draws in JAX's
 split order: ``find_k_hop`` takes one ``[B * n**l, n]`` uniform tensor per
 hop ``l``, which is what ``jax.random.uniform(sub, (q, n))`` gives after
 ``key, sub = split(key)`` per hop, and ``find_k_walks`` takes the two
 events' uniforms (``WalkDraws``). On the card the draws come from a
 ``torch.Generator`` (``train/loops.py::draw_support``, ``draw_walks``).
+
+Besides the uniform mode, ``sample_neighbors`` has the JAX package's
+exp-decay mode (``bias > 0``: a multinomial with weights exp(-bias * dt),
+sorted picks) and its ``binary`` mode (the same draw, not sorted). They
+are Gumbel-argmax scans over each history in chunks of 128 events
+(``decay_pick``), plain PyTorch on every device, as the JAX package never
+sends them to its kernel; their Gumbels enter as tensors too, ``[chunks,
+Q, n, 128]`` per hop (``decay_chunks``, ``draw_gumbel``), which is what
+``jax.random.gumbel(fold_in(key, c), (Q, n, 128))`` gives for chunk c. No
+driver reaches these modes, in either package.
 
 The sampling itself is three kernels (``ops/kernels``): ``sample_rows``
 (the cut's search, the picks and the three gathers in one launch per hop; its
@@ -21,8 +31,10 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from .kernels.sample_masked import sample_masked
-from .kernels.sample_rows import sample_rows
+from .kernels.sample_rows import cut_history, sample_rows
 from .kernels.sample_union import sample_union
+
+CHUNK = 128          # events a decay-sampling step scans per history
 
 
 class Subgraph(NamedTuple):
@@ -32,41 +44,108 @@ class Subgraph(NamedTuple):
     ts: Tuple[torch.Tensor, ...]      # each [B, n**(l+1)] float32
 
 
+def _chunks(cut: torch.Tensor) -> int:
+    return -(-int(cut.max()) // CHUNK) if cut.numel() else 0
+
+
+def decay_chunks(g, nodes: torch.Tensor, times: torch.Tensor,
+                 eids: torch.Tensor | None = None) -> int:
+    """The number of 128-event chunks ``decay_pick`` scans for these
+    queries: the longest cut history's, rounded up."""
+    return _chunks(cut_history(g, nodes, times, eids)[1])
+
+
+def draw_gumbel(generator: torch.Generator, chunks: int, q: int, n: int,
+                device) -> torch.Tensor:
+    """[chunks, Q, n, 128] standard Gumbels from ``generator``, as
+    ``jax.random.gumbel`` makes them: -log(-log(u)), u uniform in
+    [tiny, 1)."""
+    u = torch.rand((chunks, q, n, CHUNK), generator=generator, device=device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def decay_pick(g, gumbel: torch.Tensor, start, cut, times, n: int,
+               bias: float, sort: bool = True) -> torch.Tensor:
+    """Multinomial picks with replacement, weights exp(-bias * (t - ts)),
+    in [0, cut) per query: Gumbel-argmax over each history, 128 events a
+    step, with the JAX package's arithmetic (``-bias * (t - ts)`` then
+    ``+ gumbel``, the first argmax of a chunk, a strictly larger score to
+    replace the running best). ``gumbel`` [C, Q, n, 128] must cover the
+    longest history; -> [Q, n] int64, sorted when ``sort``, 0 where the
+    cut is empty."""
+    q, chunks = start.shape[0], _chunks(cut)
+    if gumbel.dim() != 4 or gumbel.shape[0] < chunks or \
+            tuple(gumbel.shape[1:]) != (q, n, CHUNK):
+        raise ValueError(f"gumbel must be [>= {chunks}, {q}, {n}, {CHUNK}], "
+                         f"got {tuple(gumbel.shape)}")
+    last = max(g.ngh_ts.shape[0] - 1, 0)
+    best_score = torch.full((q, n), -torch.inf, device=gumbel.device)
+    best_idx = torch.zeros((q, n), dtype=torch.int64, device=gumbel.device)
+    offs = torch.arange(CHUNK, device=gumbel.device)
+    for c in range(chunks):
+        o = c * CHUNK + offs                                 # [128]
+        pos = (start[:, None] + o).clamp(max=last)
+        logw = -bias * (times[:, None] - g.ngh_ts[pos])      # [Q, 128]
+        score = torch.where((o < cut[:, None])[:, None, :],
+                            logw[:, None, :] + gumbel[c], -torch.inf)
+        chunk_best, arg = score.max(dim=-1)
+        take = chunk_best > best_score
+        best_score = torch.where(take, chunk_best, best_score)
+        best_idx = torch.where(take, c * CHUNK + arg, best_idx)
+    return torch.sort(best_idx, dim=1).values if sort else best_idx
+
+
 def sample_neighbors(g, u: torch.Tensor, nodes: torch.Tensor,
                      times: torch.Tensor, n: int, bias: float = 0.0,
                      eids: torch.Tensor | None = None,
                      sample_method: str = "multinomial"):
     """k=1 temporal neighbour sampling -> ([Q,n] node, [Q,n] eid, [Q,n] ts),
-    uniform with replacement, sorted by position, zero-padded. ``u`` holds
-    the [Q, n] uniforms. With ``eids`` the history is cut at each edge's
-    timestamp (e-path)."""
-    if sample_method != "multinomial" or bias != 0.0:
-        raise NotImplementedError(
-            "exp-decay and binary sampling are not ported yet "
-            "(ROADMAP item A2)")
-    if u.shape != (nodes.shape[0], n):
-        raise ValueError(f"u must be [{nodes.shape[0]}, {n}], got "
-                         f"{tuple(u.shape)}")
-    return sample_rows(g, nodes.to(torch.int32), times, u,
-                       None if eids is None else eids.to(torch.int32))
+    with replacement, zero-padded. With ``eids`` the history is cut at each
+    edge's timestamp (e-path). ``sample_method="multinomial"`` at ``bias``
+    0 is the uniform mode (the ``sample_rows`` kernel), ``u`` the [Q, n]
+    uniforms, the picks sorted by position; at ``bias`` > 0 the exp-decay
+    mode, sorted, and ``"binary"`` the same draw unsorted (at any
+    ``bias``), ``u`` then the [C, Q, n, 128] Gumbels (``decay_pick``)."""
+    if sample_method not in ("multinomial", "binary"):
+        raise ValueError(f"unknown sample_method {sample_method!r}")
+    nodes = nodes.to(torch.int32)
+    eids = None if eids is None else eids.to(torch.int32)
+    if sample_method == "multinomial" and bias == 0.0:
+        if u.shape != (nodes.shape[0], n):
+            raise ValueError(f"u must be [{nodes.shape[0]}, {n}], got "
+                             f"{tuple(u.shape)}")
+        return sample_rows(g, nodes, times, u, eids)
+    start, cut = cut_history(g, nodes, times, eids)
+    idx = decay_pick(g, u, start, cut, times, n, bias,
+                     sort=sample_method == "multinomial")
+    pos = (start[:, None] + idx).clamp(max=max(g.ngh_ts.shape[0] - 1, 0))
+    valid = cut[:, None] > 0
+    zero = torch.zeros((), dtype=torch.int32, device=nodes.device)
+    return (torch.where(valid, g.ngh_node[pos], zero),
+            torch.where(valid, g.ngh_eid[pos], zero),
+            torch.where(valid, g.ngh_ts[pos], zero.to(torch.float32)))
 
 
 def find_k_hop(g, draws: Sequence[torch.Tensor], src: torch.Tensor,
                times: torch.Tensor, k: int, n: int,
-               eids: torch.Tensor | None = None) -> Subgraph:
+               eids: torch.Tensor | None = None, bias: float = 0.0,
+               sample_method: str = "multinomial") -> Subgraph:
     """Recursive k-hop support, widths n, n**2, ..., n**k. Hop 0 samples
     each (src, t) from its strict history (cut at ``eids`` when given);
     hop l > 0 samples each previous-hop event's endpoint with the history
     cut at that event's edge. ``draws[l]`` is hop l's [B * n**l, n] uniform
-    tensor."""
+    tensor, or in the exp-decay and binary modes (``bias``,
+    ``sample_method``, as ``sample_neighbors``) its Gumbels."""
     b = src.shape[0]
     nodes, es, tss = [], [], []
     cur_n, cur_t, cur_e = src, times, eids
     for layer in range(k):
         nn_, ne, nt = sample_neighbors(g, draws[layer], cur_n.reshape(-1),
-                                       cur_t.reshape(-1), n,
+                                       cur_t.reshape(-1), n, bias=bias,
                                        eids=None if cur_e is None
-                                       else cur_e.reshape(-1))
+                                       else cur_e.reshape(-1),
+                                       sample_method=sample_method)
         nodes.append(nn_.reshape(b, -1))
         es.append(ne.reshape(b, -1))
         tss.append(nt.reshape(b, -1))

@@ -17,7 +17,11 @@ a TGN's ``--eval_only`` scores test straight from the checkpoint's
 train-side memory, while its training run scores test after val has
 advanced the memory; so the two test numbers differ. A GraphMixer trains
 ``--n_layer`` mixer blocks over 2-hop supports whose hop 0 it reads, and
-its checkpoint meta's ``n_layer`` is that block count. Runs on the CUDA
+its checkpoint meta's ``n_layer`` is that block count. Every variant flag
+trains (``--agg_method``, ``--attn_mode``, ``--use_time`` for a TGAT, whose
+meta carries them with ``pos_seq_len``; ``--memory_updater``,
+``--aggregator``, ``--message_function``, ``--embedding_module`` for a TGN),
+and ``--eval_only`` rebuilds the variant from the meta. Runs on the CUDA
 device unless the caller passes ``device="cpu"`` to ``main``.
 """
 from __future__ import annotations
@@ -140,11 +144,13 @@ def build_model(mc, node_dim: int, edge_dim: int, device, seed: int):
                           dropout=mc.dropout, device=device, seed=seed)
     from ..models.tgat import TGAT
     # 3-layer supports (n + n**2 + n**3 events a side) train within one
-    # card's memory with each block recomputed in the backward
+    # card's memory with each attn/prod block recomputed in the backward;
+    # "pos" ranks each parent's n children, so n_degree rows suffice
     return TGAT(node_dim=node_dim, edge_dim=edge_dim,
                 num_layers=mc.n_layers, n_head=mc.n_heads,
                 dropout=mc.dropout, agg_method=mc.agg_method,
                 attn_mode=mc.attn_mode, use_time=mc.use_time,
+                pos_seq_len=max(64, mc.n_degree),
                 remat=mc.n_layers >= 3, device=device, seed=seed)
 
 

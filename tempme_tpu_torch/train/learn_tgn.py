@@ -11,6 +11,13 @@ the positives, store the last message per node and clear padding row 0.
 The train step then takes the masked BCE, runs the backward (six
 ``attend_bwd`` launches) and an Adam step, and returns the memory detached.
 
+Every TGN variant of the JAX driver trains here (``models/tgn.py``); a
+time-embedding TGN takes the train split's time statistics
+(``compute_time_statistics``), which its checkpoint meta carries. The
+identity and time embeddings read no support, so their steps draw the
+negatives (and the unused support uniforms, keeping the draw order) but
+sample nothing: no ``sample_rows`` or attention launch.
+
 The JAX package runs a whole epoch as one ``lax.scan`` to cut dispatch
 cost; here the step loop is Python (a CUDA graph of the step is later
 work).
@@ -24,7 +31,8 @@ import time
 import numpy as np
 import torch
 
-from ..data.events import RandEdgeSampler, load_dataset
+from ..data.events import (RandEdgeSampler, compute_time_statistics,
+                           load_dataset)
 from ..data.graph import build_temporal_graph
 from ..models.common import Features
 from ..models.tgn import TGN, TGNMemoryState, init_memory_state
@@ -36,6 +44,17 @@ from . import loops
 
 
 StepDraws = loops.StepDraws   # dropout: per side (src, tgt, bgd)
+
+
+def sample_tgn_support(model, g, batch: loops.Batch, dst_table, n: int,
+                       draws: loops.SupportDraws):
+    """The negatives and the three 2-hop supports cut at the batch time
+    (as the JAX step's ``use_eidx=False``); a TGN that reads no support
+    gets the negatives and None for each support."""
+    if model.reads_support:
+        return loops.sample_support(g, batch, dst_table, model.n_layers, n,
+                                    draws, use_eidx=False)
+    return (dst_table[draws.neg_idx],) + (None,) * 3
 
 
 class TGNTrainStep:
@@ -66,10 +85,8 @@ class TGNTrainStep:
 
     def __call__(self, mem, batch: loops.Batch, draws: StepDraws):
         batch = loops.mask_batch_nodes(batch)
-        # history cut at the batch time (use_eidx=False), as in the JAX step
-        bgd, s_src, s_tgt, s_bgd = loops.sample_support(
-            self.g, batch, self.dst_table, self.model.n_layers, self.n,
-            draws.support, use_eidx=False)
+        bgd, s_src, s_tgt, s_bgd = sample_tgn_support(
+            self.model, self.g, batch, self.dst_table, self.n, draws.support)
         self.optimizer.zero_grad(set_to_none=True)
         (pos, neg), new_mem = self.model.contrast(
             self.feats, mem, batch.src, batch.dst, bgd, batch.ts, batch.eidx,
@@ -107,9 +124,8 @@ class TGNEvalStep:
     @torch.no_grad()
     def __call__(self, mem, batch: loops.Batch, draws: loops.SupportDraws):
         batch = loops.mask_batch_nodes(batch)
-        bgd, s_src, s_tgt, s_bgd = loops.sample_support(
-            self.g, batch, self.dst_table, self.model.n_layers, self.n, draws,
-            use_eidx=False)
+        bgd, s_src, s_tgt, s_bgd = sample_tgn_support(
+            self.model, self.g, batch, self.dst_table, self.n, draws)
         (pos, neg), new_mem = self.model.contrast(
             self.feats, mem, batch.src, batch.dst, bgd, batch.ts, batch.eidx,
             s_src, s_tgt, s_bgd)
@@ -171,14 +187,18 @@ def main(args, cfg, device=None):
                                   ds.full.num_edges, device=dev)
     feats = Features(torch.from_numpy(ds.node_feat).to(dev),
                      torch.from_numpy(ds.edge_feat).to(dev))
+    mean_shift, std_shift = (0.0, 0.0), (1.0, 1.0)
+    if mc.embedding_module == "time":
+        mean_shift, std_shift = compute_time_statistics(ds.train)
     model = TGN(node_dim=ds.node_feat.shape[1],
                 edge_dim=ds.edge_feat.shape[1], num_nodes=ds.full.num_nodes,
                 n_layers=2, n_head=mc.n_heads, dropout=mc.dropout,
                 message_dim=mc.message_dim,
                 memory_updater=mc.memory_updater, aggregator=mc.aggregator,
                 message_function=mc.message_function,
-                embedding_type=mc.embedding_module, device=dev,
-                seed=cfg.train.seed)
+                embedding_type=mc.embedding_module,
+                mean_time_shift=mean_shift, std_time_shift=std_shift,
+                device=dev, seed=cfg.train.seed)
     mem = init_memory_state(ds.full.num_nodes, model.memory_dim,
                             model.raw_message_dim, device=dev)
     train_sampler = RandEdgeSampler([ds.train.src], [ds.train.dst])
@@ -290,8 +310,8 @@ def main(args, cfg, device=None):
                           aggregator=mc.aggregator,
                           message_function=mc.message_function,
                           embedding_module=mc.embedding_module,
-                          mean_time_shift=[0.0, 0.0],
-                          std_time_shift=[1.0, 1.0]))
+                          mean_time_shift=list(mean_shift),
+                          std_time_shift=list(std_shift)))
             print(f"  saved best checkpoint -> {ckpt_path} "
                   f"(ap={best['ap']:.4f})")
         stop = stopper.early_stop_check(val["ap"])

@@ -40,6 +40,12 @@ and draws only the dropout, gate and gamma draws; test is evaluated from
 the test cache, val online, as in the JAX package. The cache holds 2-hop
 supports, so a 3-layer TGAT refuses it. The profiler hook (``--profile``,
 ROADMAP A15) is not ported and raises.
+
+The explanation weights each support edge's attention probability and
+the sweep masks the support's edges, so the driver refuses, right after
+loading it, a base whose embeddings have neither (``explainable``): a
+TGAT with the LSTM or mean pool or map attention, a TGN with the identity
+or time embedding. The JAX driver fails on these too, by assertion.
 """
 from __future__ import annotations
 
@@ -86,6 +92,26 @@ class ExplainerDraws(NamedTuple):
     imp: Optional[tuple] = None        # per side ImpDraws or TGATImpDraws
     edge: Optional[tuple] = None       # per side EdgeDraws
     gamma: object = None
+
+
+def explainable(base: LoadedBase) -> None:
+    """Raise ``ValueError`` naming the reason where the explainer cannot
+    explain ``base``: its explanation weights scale attention
+    probabilities over the support's edges and its ratio sweep runs the
+    base's split-attention form."""
+    m = base.model
+    if base.base_type == "tgat" and not m.uses_split_attention:
+        raise ValueError(
+            f"the explainer needs a TGAT with --agg_method attn and "
+            f"--attn_mode prod: its explanations weight the attention "
+            f"probabilities of the support's edges, and a TGAT with "
+            f"agg_method {m.agg_method}, attn_mode {m.attn_mode} has none "
+            f"to weight (its pools take no explain weights)")
+    if base.base_type == "tgn" and not m.reads_support:
+        raise ValueError(
+            f"the explainer needs a TGN with --embedding_module "
+            f"graph_attention: a TGN with the {m.embedding_type} embedding "
+            f"reads no support edges, so there is nothing to explain")
 
 
 def make_base_contrast(base: LoadedBase):
@@ -455,6 +481,7 @@ def main(argv=None, device=None):
     base = load_base(osp.join(args.ckpt_dir, "tgnn",
                               f"{args.base_type}_{cfg.data.name}.pt"),
                      device=dev)
+    explainable(base)
     n_degree = int(base.meta["n_degree"])
     if args.use_cache and args.base_type == "tgat" and \
             base.model.num_layers > C.HOPS:

@@ -32,7 +32,17 @@ flax or a msgpack package. The rules:
   in)^T``, ``bias_ih = cat(b_ir, b_iz, b_in)``, ``weight_hh = cat(hr, hz,
   hn)^T`` and ``bias_hn = b_hn`` (the JAX call is
   ``memory_cell(carry=memory, inputs=msgs)``, the port's
-  ``memory_updater(msgs, memory)``).
+  ``memory_updater(msgs, memory)``); flax's ``SimpleCell`` (the ``rnn``
+  updater: ``i`` with bias, ``h`` without) maps by the rules above;
+* the TGAT variants: a map-attention block holds ``map_attn`` (the
+  bias-free ``wq/wk/wv_node_transform``, ``fc``, ``ln`` and the
+  ``[d_k, 1]`` ``weight_map_q``/``weight_map_k``, which become ``[d_k]``)
+  beside its ``merger``; an LSTM block's cell (``OptimizedLSTMCell_0``)
+  has bias-free input kernels ``ii``/``if``/``ig``/``io`` and hidden
+  kernels ``hi``/``hf``/``hg``/``ho`` with bias, stacked as
+  ``lstm.weight_ih = cat(ii, if, ig, io)^T``, ``lstm.weight_hh = cat(hi,
+  hf, hg, ho)^T``, ``lstm.bias_hh``; ``time_encoder/pos_table`` keeps its
+  ``[seq_len, dim]`` shape; a Jodie TGN's ``jodie_proj`` is a ``Dense``.
 
 An enhance checkpoint of the JAX package holds the predictor and the base
 it trained, ``{"predictor": {"params"}, "base": {"params"}}``, for a TGN
@@ -67,6 +77,16 @@ def _gru(tree: dict, prefix: str, out: dict) -> None:
     out[prefix + "bias_hn"] = _t(tree["hn"]["bias"])
 
 
+def _lstm(tree: dict, prefix: str, out: dict) -> None:
+    gates = ("i", "f", "g", "o")
+    out[prefix + "weight_ih"] = _t(np.concatenate(
+        [np.asarray(tree["i" + g]["kernel"]) for g in gates], axis=1).T)
+    out[prefix + "weight_hh"] = _t(np.concatenate(
+        [np.asarray(tree["h" + g]["kernel"]) for g in gates], axis=1).T)
+    out[prefix + "bias_hh"] = _t(np.concatenate(
+        [tree["h" + g]["bias"] for g in gates]))
+
+
 def _module_name(name: str) -> str:
     m = re.fullmatch(r"(attn|mixer)_(\d+)", name)
     if m:
@@ -82,8 +102,12 @@ def _module_name(name: str) -> str:
 
 def _walk(tree: dict, prefix: str, out: dict) -> None:
     for name, val in tree.items():
-        if name == "memory_updater":
+        if name == "memory_updater" and "ir" in val:
             _gru(val, prefix + "memory_updater.", out)
+        elif name == "OptimizedLSTMCell_0":
+            _lstm(val, prefix + "lstm.", out)
+        elif name == "pos_table":
+            out[prefix + name] = _t(val)
         elif isinstance(val, dict):
             _walk(val, prefix + _module_name(name) + ".", out)
         elif name == "kernel":

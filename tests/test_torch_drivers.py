@@ -88,16 +88,17 @@ def test_learn_base_tgn_one_epoch(workdir):
 
 
 @pytest.mark.parametrize("base, item", [("tgat", "A10")])
-def test_unported_bases_name_roadmap_items(workdir, base, item):
-    """TGAT runs its default variant only, and the others (here
-    ``--agg_method lstm``) name A10; every base is ported (GraphMixer's
-    drivers: ``tests/test_torch_graphmixer_drivers.py``)."""
+def test_unported_bases_name_roadmap_items(workdir, base, item, capsys):
+    """Every base and every variant is ported (item A10, the TGAT variants,
+    is done: ``tests/test_torch_variant_drivers.py`` trains them); a value
+    outside a variant flag's choices is refused by the parser, before any
+    work."""
     argv = _argv(workdir, workdir / "unported", 1)
     argv[argv.index("tgn")] = base
-    if base == "tgat":
-        argv += ["--agg_method", "lstm"]
-    with pytest.raises(NotImplementedError, match=item):
-        learn_base.main(argv, device="cpu")
+    with pytest.raises(SystemExit):
+        learn_base.main(argv + ["--agg_method", "max"], device="cpu")
+    assert "invalid choice: 'max'" in capsys.readouterr().err
+    assert not (workdir / "unported").exists()
 
 
 def test_resume_bitwise_continuation_tgn(workdir, capsys):

@@ -203,8 +203,12 @@ def test_plain_and_wrapper_agree_on_cpu(graphs):
 
 
 def test_other_sampling_modes_name_the_roadmap_item(graphs):
+    """The exp-decay and binary modes (item A2) are ported
+    (``tests/test_torch_sampler_modes.py`` holds them against JAX); they
+    take Gumbels, not the uniform mode's [Q, n] uniforms, and refuse
+    those."""
     _, tg = graphs
     u = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(ValueError, match="gumbel"):
         S.sample_neighbors(tg, u, torch.ones(2, dtype=torch.int32),
                            torch.ones(2), 3, bias=0.5)

@@ -317,7 +317,13 @@ def test_uslegis_checkpoint_contrast_at_full_width():
 
 
 def test_unported_variants_name_roadmap_item():
+    """The variants (item A10) are ported (``tests/test_torch_tgat_variants
+    .py`` holds them against JAX); unknown values raise, as in JAX."""
     for kw in (dict(agg_method="lstm"), dict(attn_mode="map"),
                dict(use_time="pos")):
-        with pytest.raises(NotImplementedError, match="A10"):
+        TGAT(8, 4, device="cpu", **kw)
+    for kw, match in ((dict(agg_method="max"), "agg_method"),
+                      (dict(attn_mode="dot"), "agg_method/attn_mode"),
+                      (dict(use_time="clock"), "time encoding")):
+        with pytest.raises(ValueError, match=match):
             TGAT(8, 4, device="cpu", **kw)

@@ -187,5 +187,8 @@ def test_uslegis_checkpoint_forward_at_full_width():
 
 
 def test_unported_variant_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A4"):
-        TGN(8, 4, 10, memory_updater="rnn", device="cpu")
+    """The variants (item A4) are ported (``tests/test_torch_tgn_variants
+    .py`` holds them against JAX); unknown values raise, as in JAX."""
+    TGN(8, 4, 10, memory_updater="rnn", device="cpu")
+    with pytest.raises(ValueError, match="memory_updater"):
+        TGN(8, 4, 10, memory_updater="lstm", device="cpu")
