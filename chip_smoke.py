@@ -100,8 +100,20 @@ script
    (a process that exits non-zero with the reason); holds the sampler's
    exp-decay and binary modes at Q 2,000 on the card against the CPU, bit
    for bit;
-14. prints its run time, one JSON line of kernel numbers, the card again,
-   and the last line ``{"ok": true, "device": {...}}``.
+14. runs the tools: ``tools/profile_step.py`` on the wikipedia-shaped
+   stream (each stage of the TGN train step timed by itself, 6
+   ``sample_rows``, ``attend_drop`` and ``attend_bwd`` launches a full
+   step, a trace of five steps); ``tools/op_census.py --capture enron``
+   (shares that sum to 100%, the port's kernels found by name);
+   ``temp_exp_main --profile --n_epoch 2`` on the TGN of step 5 over the
+   stream's first 2,000 events (the trace of epoch 1 holds the walk
+   kernels); ``cli visualize`` on the explainer of step 6 (the figures,
+   and one batch's plotted arrays on the card against the CPU); one
+   ``learn_base`` epoch under ``TEMPME_DEBUG=1``; the native host runtime
+   built with g++ (``load_csv`` against numpy, the host picks' cuts);
+15. prints its run time against its 1,000 s budget, one JSON line of
+   kernel numbers, the card again, and the last line ``{"ok": true,
+   "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
 the card-against-CPU checks run at float32 with the earlier tolerances,
@@ -151,54 +163,17 @@ def gpu_line():
 
 
 def time_ms(fn, reps=20, repeats=7):
-    """(device ms, host ms) per call of ``fn``. Device: ``reps`` calls
-    captured in one CUDA graph, replayed ``repeats`` times, timed with CUDA
-    events, median per call; the host's launch overhead is not in it. Host:
-    median of single eager calls timed with CUDA events, which includes the
-    time the card waits for Python to launch the work."""
-    import torch
-    side = torch.cuda.Stream()              # warm up off the default stream,
-    side.wait_stream(torch.cuda.current_stream())   # as capture wants
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-
-    def timed(call, per):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        call()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / per
-
-    device = sorted(timed(graph.replay, reps) for _ in range(repeats))
-    host = sorted(timed(fn, 1) for _ in range(reps))
-    del graph
-    return device[len(device) // 2], host[len(host) // 2]
+    """``tempme_tpu_torch.utils.profiling.time_ms``: (device ms, host ms)
+    per call of ``fn``, device time from a CUDA graph's replays."""
+    from tempme_tpu_torch.utils import profiling
+    return profiling.time_ms(fn, reps, repeats)
 
 
 def eager_ms(fn, reps=5):
-    """Median ms of single eager calls of ``fn`` timed with CUDA events
-    (for work that syncs with the host, which a CUDA graph cannot hold)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
+    """``tempme_tpu_torch.utils.profiling.eager_ms``: median ms of single
+    eager calls timed with CUDA events."""
+    from tempme_tpu_torch.utils import profiling
+    return profiling.eager_ms(fn, reps)
 
 
 def sample_rows_bytes(g, nodes, times, u, eids):
@@ -489,48 +464,11 @@ def check_against_cpu(ds, step, mem, dev, compute_dtype, rtol, atol,
 
 
 def profile_steps(run, n_steps=20):
-    """Trace ``n_steps`` calls of ``run(i)`` with ``torch.profiler``: the
-    device's busy share of the window, the kernels that took the most device
-    time and the port's own kernels. The launches made here count for no
-    path."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n_steps):
-            run(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, count = {}, {}
-    # the raw events: building the profiler's event tree of a step's CPU
-    # ops took most of a minute for 20 TGAT steps; device work only, no
-    # memory records, no user annotations (``Optimizer.step#...`` spans
-    # kernels, not one)
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == DeviceType.CUDA and \
-                not e.is_user_annotation() and not e.is_hidden_event() and \
-                name not in ("[memory]", "[OutOfMemory]"):
-            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e3
-            count[name] = count.get(name, 0) + 1
-    busy = sum(by_name.values())
-    if not by_name:
-        say("  the profiler saw no device time")
-        return
-    say(f"  {n_steps} steps traced: wall {wall_us / n_steps / 1e3:.3f} ms/step,"
-        f" device busy {busy / n_steps / 1e3:.3f} ms/step, idle share "
-        f"{1 - busy / wall_us:.3f}, {sum(count.values()) / n_steps:.0f} "
-        f"kernels/step")
-    ranked = sorted(by_name.items(), key=lambda x: -x[1])
-    # the twelve largest, then the port's own kernels further down
-    port = [x for x in ranked[12:] if any(
-        k in x[0] for k in ("attend", "sample_", "w2e_"))]
-    for name, us in ranked[:12] + port:
-        say(f"    {us / n_steps:9.1f} us/step {count[name] / n_steps:5.1f}x "
-            f"{name[:90]}")
+    """``tempme_tpu_torch.utils.profiling.profile_steps``, printed through
+    ``say``: the device's busy share of ``n_steps`` traced calls of
+    ``run(i)`` and the kernels that took the most device time."""
+    from tempme_tpu_torch.utils import profiling
+    return profiling.profile_steps(run, n_steps, log=say)
 
 
 def profile_serving(ds, step, mem, dev, n_steps=20):
@@ -1100,19 +1038,20 @@ EXPLAIN_PER_STEP = {
                  attend_drop=0, attend_bwd=0)}
 
 
-def explain_base_dir(work, ckpt_dir):
-    """A checkpoint directory whose ``tgnn/tgn_{EXPLAIN_DATA}.pt`` is the
-    TGN of [train] (``ckpt_dir``): trained on the whole stream, it runs on
-    the cut, whose node table is the stream's. [explain] explains it on the
-    cut."""
+def explain_base_dir(work, ckpt_dir, data=None, name="explain_base"):
+    """A checkpoint directory ``{work}/{name}/params`` whose
+    ``tgnn/tgn_{data}.pt`` is the TGN of [train] (``ckpt_dir``): trained
+    on the whole stream, it runs on a cut whose node table is the
+    stream's. [explain] explains it on ``ml_{EXPLAIN_DATA}`` (the default
+    ``data``)."""
     import shutil
-    mine = os.path.join(work, "explain_base", "params")
+    data = data or EXPLAIN_DATA
+    mine = os.path.join(work, name, "params")
     os.makedirs(os.path.join(mine, "tgnn"))
     for suffix in ("", ".json"):
         shutil.copy(os.path.join(ckpt_dir, "tgnn",
                                  f"tgn_{DATA_NAME}.pt{suffix}"),
-                    os.path.join(mine, "tgnn",
-                                 f"tgn_{EXPLAIN_DATA}.pt{suffix}"))
+                    os.path.join(mine, "tgnn", f"tgn_{data}.pt{suffix}"))
     return mine
 
 
@@ -3779,6 +3718,341 @@ def variant_phases(work, ds_dir, dev, torch):
     return launches, numbers
 
 
+TOOLS_EVENTS = 2_000                 # [explain-profile]'s cut, node table whole
+TOOLS_DATA = "wikishape2k"
+VIZ_SAMPLES = 6
+PROFILE_STAGES = ("sample", "fwd", "fwd_drop", "embed", "memory", "fwdbwd",
+                  "full", "sample_hop0", "sample_hop1")
+_STEP_KERNELS = ("sample_rows", "attend", "attend_drop", "attend_bwd")
+# launches of one call of each profile_step stage (2 layers, 3 sides)
+PROFILE_LAUNCHES = {
+    "sample": dict(sample_rows=6), "fwd": dict(attend=6),
+    "fwd_drop": dict(attend_drop=6), "embed": dict(attend=6),
+    "memory": dict(attend=6), "fwdbwd": dict(attend=6, attend_bwd=6),
+    "full": dict(sample_rows=6, attend_drop=6, attend_bwd=6),
+    "sample_hop0": dict(sample_rows=1), "sample_hop1": dict(sample_rows=1)}
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output captured; returns
+    (result, the printed text)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = fn(*args, **kw)
+    return out, printed.getvalue()
+
+
+def profile_step_phase(work, ds_dir):
+    """[profile-step]: ``tools/profile_step.py`` on the wikipedia-shaped
+    stream at its defaults (batch 256, 30 neighbours, 2 layers, 2 heads,
+    dropout 0.1) with ``--trace``. Returns its numbers."""
+    import math
+    from tempme_tpu_torch.tools import profile_step
+    from tempme_tpu_torch.utils import profiling
+    trace_dir = os.path.join(work, "profile_step_trace")
+    t0 = time.perf_counter()
+    r, printed = quiet(profile_step.main, ["--data", DATA_NAME, "--data_dir",
+                                           ds_dir, "--trace", trace_dir])
+    wall = time.perf_counter() - t0
+    say(f"  {printed.strip()}")
+    for stage in PROFILE_STAGES:
+        for key in (f"{stage}_ms", f"{stage}_host_ms"):
+            if key in r and not (math.isfinite(r[key]) and r[key] > 0):
+                raise AssertionError(f"profile_step {key} = {r.get(key)}")
+        check_launches(r["launches"][stage], {
+            k: PROFILE_LAUNCHES[stage].get(k, 0) for k in _STEP_KERNELS})
+    trace = profiling.latest_trace(trace_dir)
+    say(f"  {'stage':<12}{'device ms':>11}{'host ms':>11}  clock, launches "
+        f"per call")
+    for stage in PROFILE_STAGES:
+        host = r.get(f"{stage}_host_ms")
+        host = "-" if host is None else f"{host:.4f}"
+        say(f"  {stage:<12}{r[stage + '_ms']:>11.4f}{host:>11}  "
+            f"{r['clock'][stage]}, {PROFILE_LAUNCHES[stage]}")
+    say(f"  {r['events_per_s_full']:.1f} events/s on the full step; trace "
+        f"{os.path.basename(trace)} ({os.path.getsize(trace)} bytes); "
+        f"{wall:.2f} s with loading")
+    return r
+
+
+def op_census_phase(work, torch):
+    """[op-census]: ``tools/op_census.py --capture enron --steps 20`` (the
+    Enron-shaped TGN train step, batch 256, 30 neighbours). Returns the
+    categories."""
+    from tempme_tpu_torch.tools import op_census
+    from tempme_tpu_torch.tools.profile_step import KERNELS
+    for f in KERNELS.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res, printed = quiet(op_census.main, [
+        "--capture", "enron", "--steps", "20", "--trace_dir",
+        os.path.join(work, "op_census"), "--out",
+        os.path.join(work, "op_census.json")])
+    wall = time.perf_counter() - t0
+    for line in printed.splitlines():
+        say(f"    | {line}")
+    steps = 3 + res["meta"]["steps"]
+    launches = {name: f.launches for name, f in KERNELS.items()}
+    check_launches(launches, dict(sample_rows=6 * steps, attend=0,
+                                  attend_drop=6 * steps,
+                                  attend_bwd=6 * steps))
+    total = sum(a["pct"] for a in res["categories"].values())
+    if abs(total - 100.0) > 0.1:
+        raise AssertionError(f"the census's shares sum to {total}")
+    _, rows = op_census.parse_trace(res["meta"]["paths"], top_ops=10 ** 6)
+    port = [r for r in rows if r["category"] == "port kernels"]
+    for frag in ("sample_rows_kernel", "attend_kernel", "attend_bwd_kernel"):
+        if not any(frag in r["op"] for r in port):
+            raise AssertionError(f"no {frag} among the port's kernels: "
+                                 f"{[r['op'] for r in port]}")
+    say(f"  launches {launches} over {steps} steps (3 warm-up); shares sum "
+        f"to {total:.6f}%; {wall:.2f} s")
+    for r in port:
+        say(f"    port kernel {r['occurrences']:5d}x "
+            f"{r['self_time_us']:10.1f} us {r['op'][:80]}")
+    return res["categories"]
+
+
+def explain_profile_phase(work, ds_dir, train_ckpt, torch):
+    """[explain-profile]: ``temp_exp_main --profile --n_epoch 2`` on the
+    TGN of [train] over the stream's first TOOLS_EVENTS events (node table
+    whole); the trace of epoch 1 holds the walk kernels."""
+    import math
+    from tempme_tpu_torch.data.events import (load_dataset, shuffled_events,
+                                              split_events)
+    from tempme_tpu_torch.tools import op_census
+    from tempme_tpu_torch.train import temp_exp_main
+    from tempme_tpu_torch.utils import profiling
+    write_stream(ds_dir, TOOLS_DATA, TOOLS_EVENTS)
+    ds = load_dataset(TOOLS_DATA, ds_dir)
+    ckpt = explain_base_dir(work, train_ckpt, TOOLS_DATA, "profile_base")
+    out = os.path.join(work, "explain_profile")
+    kernels = explain_kernels()
+    steps = {"train": 2 * (len(ds.train) // EXPLAIN_BATCH),
+             "eval": 2 * (math.ceil(len(ds.val) / EXPLAIN_BATCH)
+                          + math.ceil(len(ds.test) / EXPLAIN_BATCH)),
+             "null": min(50, len(split_events(
+                 shuffled_events(ds.full, seed=SEED), ds.node_feat,
+                 ds.edge_feat).test) // 10)}
+    want = {k: sum(EXPLAIN_PER_STEP[p][k] * n for p, n in steps.items())
+            for k in kernels}
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    _, printed = quiet(temp_exp_main.main, explain_argv(
+        ds_dir, ckpt, out, "--n_epoch", "2", "--profile", data=TOOLS_DATA))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    for line in printed.splitlines():
+        if line.startswith(("epoch", "profiler")):
+            say(f"    | {line}")
+    check_launches(launches, want)
+    trace = profiling.latest_trace(os.path.join(out, "tb", "trace"))
+    if f"profiler trace -> {trace}" not in printed:
+        raise AssertionError("the driver did not print its trace's path")
+    cats, rows = op_census.parse_trace([trace], top_ops=10 ** 6)
+    total = sum(a["pct"] for a in cats.values())
+    if abs(total - 100.0) > 0.1:
+        raise AssertionError(f"the census's shares sum to {total}")
+    port = [r for r in rows if r["category"] == "port kernels"]
+    for frag in ("sample_union_kernel", "sample_masked_kernel",
+                 "w2e_fwd_kernel", "w2e_bwd_kernel"):
+        if not any(frag in r["op"] for r in port):
+            raise AssertionError(f"no {frag} in the --profile trace: "
+                                 f"{[r['op'] for r in port]}")
+    say(f"  launches {launches} for {steps} steps (2 epochs; the null "
+        f"model once); trace {os.path.basename(trace)} "
+        f"({os.path.getsize(trace)} bytes); main() {wall:.2f} s")
+    for cat, a in sorted(cats.items(), key=lambda kv: -kv[1]["self_time_us"]):
+        say(f"    {cat:<22}{a['self_time_us']:12.1f} us {a['pct']:7.2f}% "
+            f"{a['occurrences']:7d} ops")
+    for r in port:
+        say(f"    port kernel {r['occurrences']:5d}x "
+            f"{r['self_time_us']:10.1f} us {r['op'][:80]}")
+    return launches, cats
+
+
+def visualize_phase(work, ds_dir, ckpt_dir, dev, torch):
+    """[visualize]: ``cli visualize`` on [explain]'s saved TGN explainer;
+    then the plotted arrays of one batch on the card against the CPU, from
+    the same checkpoint and draws."""
+    import numpy as np
+    from tempme_tpu_torch import cli
+    from tempme_tpu_torch.data.events import RandEdgeSampler, load_dataset
+    from tempme_tpu_torch.data.graph import build_temporal_graph
+    from tempme_tpu_torch.models.common import Features
+    from tempme_tpu_torch.ops import sampler as S
+    from tempme_tpu_torch.tools import visualize
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.train.temp_exp_main import (N_WALK_CONT,
+                                                      ExplainerDraws)
+    out = os.path.join(work, "visualize")
+    kernels = explain_kernels()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    rc, printed = quiet(cli.main, [
+        "visualize", "--data", EXPLAIN_DATA, "--data_dir", ds_dir,
+        "--base_type", "tgn", "--ckpt_dir", ckpt_dir, "--out_dir", out,
+        "--n_samples", str(VIZ_SAMPLES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in kernels.items()}
+    pngs = sorted(p for p in os.listdir(out) if p.endswith(".png"))
+    say(f"  {printed.strip()}: {pngs} in {wall:.2f} s; launches {launches}")
+    if rc != 0 or len(pngs) != VIZ_SAMPLES + 1:
+        raise AssertionError(f"cli visualize exited {rc} with {pngs}")
+    walk_path = ("sample_rows", "sample_union", "sample_masked",
+                 "walk_to_edge")          # each launched, attention not
+    check_launches({k: min(launches[k], 1) for k in walk_path}
+                   | {"attend": launches["attend"]},
+                   dict.fromkeys(walk_path, 1) | {"attend": 0})
+
+    ds = load_dataset(EXPLAIN_DATA, ds_dir)
+    cpu = torch.device("cpu")
+    dst = RandEdgeSampler([ds.test.src], [ds.test.dst], seed=SEED).dst_list
+    batch = loops.Batch(*(x[0] for x in loops.stack_batches(
+        ds.test, EXPLAIN_BATCH, True, SEED, cpu)))
+    gen = torch.Generator(device=cpu)
+    gen.manual_seed(SEED + 13)
+    draws = ExplainerDraws(
+        loops.draw_support(gen, EXPLAIN_BATCH, 2, N_DEGREE, len(dst), cpu),
+        tuple(S.draw_walks(gen, EXPLAIN_BATCH, N_DEGREE, N_WALK_CONT, cpu)
+              for _ in range(3)))
+    got = []
+    for d in (dev, cpu):
+        g = build_temporal_graph(ds.full, ds.full.num_nodes,
+                                 ds.full.num_edges, device=d)
+        feats = Features(torch.from_numpy(ds.node_feat).to(d),
+                         torch.from_numpy(ds.edge_feat).to(d))
+        explainer = visualize.load_explainer(ckpt_dir, "tgn", EXPLAIN_DATA, d)
+        got.append(visualize.explain_samples(
+            explainer, feats, g, to_device(batch, d),
+            torch.from_numpy(dst).to(d), N_DEGREE, to_device(draws, d),
+            EXPLAIN_BATCH))
+    (card, card_counts), (ref, ref_counts) = got
+    if not np.array_equal(card_counts, ref_counts):
+        raise AssertionError("motif counts differ from the CPU")
+    worst = 0.0
+    for (e, imp, t), (e_c, imp_c, t_c) in zip(card, ref):
+        if not np.isfinite(imp).all():
+            raise AssertionError("an importance is not finite")
+        if not (np.array_equal(e, e_c) and np.array_equal(t, t_c)):
+            raise AssertionError("support edges differ from the CPU")
+        np.testing.assert_allclose(imp, imp_c, rtol=2e-4, atol=1e-5)
+        worst = max(worst, float(np.abs(imp - imp_c).max()))
+    filled = float(np.mean([(e > 0).mean() for e, _, _ in card]))
+    say(f"  {len(card)} samples of batch {EXPLAIN_BATCH}: edge ids and "
+        f"motif counts equal to the CPU's, importances within {worst:.3e} "
+        f"(rtol 2e-4, atol 1e-5); {filled:.4f} of the support slots filled")
+    return launches
+
+
+def debug_phase(work, ds_dir, torch):
+    """[debug]: one ``learn_base`` epoch of the TGN under TEMPME_DEBUG=1 on
+    ``ml_{VARIANT_DATA}`` (written by [variants-data])."""
+    from tempme_tpu_torch.train import learn_base
+    out = os.path.join(work, "debug")
+    argv = train_argv(ds_dir, out)
+    argv[argv.index("--data") + 1] = VARIANT_DATA
+    os.environ["TEMPME_DEBUG"] = "1"
+    t0 = time.perf_counter()
+    try:
+        ap, printed = quiet(learn_base.main, argv)
+    finally:
+        del os.environ["TEMPME_DEBUG"]
+    wall = time.perf_counter() - t0
+    mode = "[debug] TEMPME_DEBUG=1"
+    lines = [line for line in printed.splitlines()
+             if line.startswith((mode, "epoch"))]
+    for line in lines:
+        say(f"    | {line}")
+    if not lines or not lines[0].startswith(mode) or not 0.0 <= ap <= 1.0:
+        raise AssertionError(f"the debug run printed {printed[-2000:]}")
+    if torch.is_anomaly_enabled():
+        raise AssertionError("anomaly mode outlived the debug run")
+    say(f"  one epoch with anomaly detection and the epoch-end finiteness "
+        f"checks: test AP {ap:.6f}, {wall:.2f} s")
+
+
+def native_phase(ds_dir):
+    """[native]: build the host library with g++; ``load_csv`` of the
+    stream's CSV equals the numpy loader, and ``HostGraph``'s picks lie
+    before their cut times, sorted."""
+    import numpy as np
+    from tempme_tpu_torch.data.events import load_csv_events
+    from tempme_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host runtime did not build")
+    build_s = time.perf_counter() - t0
+    path = os.path.join(ds_dir, f"ml_{DATA_NAME}.csv")
+    t0 = time.perf_counter()
+    cols = native.load_csv(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ev = load_csv_events(path)
+    numpy_s = time.perf_counter() - t0
+    for name, a, b in zip(("src", "dst", "ts", "label", "e_idx"), cols,
+                          (ev.src, ev.dst, ev.ts, ev.label, ev.e_idx)):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"load_csv's {name} differs from numpy's")
+    g = native.HostGraph(ev.src, ev.dst, ev.e_idx, ev.ts, ev.num_nodes,
+                         ev.num_edges)
+    r = np.random.RandomState(SEED)
+    q = 2000
+    nodes = r.randint(1, ev.num_nodes, q).astype(np.int32)
+    times = r.uniform(0, float(ev.ts.max()) + 1, q).astype(np.float32)
+    t0 = time.perf_counter()
+    on, oe, ot = g.sample_neighbors(nodes, times, N_DEGREE, seed=SEED)
+    sample_s = time.perf_counter() - t0
+    picked = oe > 0
+    if not (ot[picked] < np.broadcast_to(times[:, None], ot.shape)[picked]
+            ).all():
+        raise AssertionError("a host pick is not before its cut time")
+    if not (np.diff(ot, axis=1) >= 0).all() or \
+            (on[~picked] != 0).any():
+        raise AssertionError("host picks are not sorted or not padded")
+    say(f"  built in {build_s:.2f} s; load_csv of {len(ev)} events equal to "
+        f"numpy's ({native_s * 1e3:.1f} ms against {numpy_s * 1e3:.1f} "
+        f"ms); {q} x {N_DEGREE} host picks before their cuts, sorted "
+        f"({picked.mean():.4f} filled, {sample_s * 1e3:.2f} ms)")
+
+
+def tool_phases(work, ds_dir, train_ckpt, explain_ckpt, dev, torch):
+    """[profile-step], [op-census], [explain-profile], [visualize],
+    [debug] and [native]. Returns (launches per path, numbers)."""
+    t0 = time.perf_counter()
+    say("[profile-step] tools/profile_step.py on the wikipedia-shaped "
+        "stream (batch 256, 30 neighbours, 2 layers, 2 heads, dropout 0.1): "
+        "each stage of the TGN train step timed by itself, then --trace "
+        "over five full steps")
+    numbers = {"profile_step": profile_step_phase(work, ds_dir)}
+    say("[op-census] tools/op_census.py --capture enron --steps 20 (the "
+        "Enron-shaped TGN train step, batch 256, 30 neighbours)")
+    numbers["op_census"] = op_census_phase(work, torch)
+    say(f"[explain-profile] temp_exp_main --profile --n_epoch 2 on the TGN "
+        f"of [train] over the stream's first {TOOLS_EVENTS} events "
+        f"(ml_{TOOLS_DATA}, node table whole), batch {EXPLAIN_BATCH}")
+    launches = {}
+    launches["explain-profile"], numbers["explain_profile"] = \
+        explain_profile_phase(work, ds_dir, train_ckpt, torch)
+    say(f"[visualize] cli visualize on [explain]'s TGN explainer "
+        f"(ml_{EXPLAIN_DATA}, {VIZ_SAMPLES} samples); one batch's plotted "
+        f"arrays on the card against the CPU")
+    launches["visualize"] = visualize_phase(work, ds_dir, explain_ckpt, dev,
+                                            torch)
+    say(f"[debug] learn_base.main --base_type tgn under TEMPME_DEBUG=1, one "
+        f"epoch on ml_{VARIANT_DATA}")
+    debug_phase(work, ds_dir, torch)
+    say("[native] the native host runtime (g++), on the stream's CSV")
+    native_phase(ds_dir)
+    numbers["wall_s"] = time.perf_counter() - t0
+    say(f"  the tools' phases took {numbers['wall_s']:.1f} s")
+    return launches, numbers
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tempme_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository",
@@ -4002,6 +4276,9 @@ def main():
         pipeline_numbers = pipeline_phase(work, ds_dir, torch)
         variant_launches, variant_numbers = variant_phases(
             work, ds_dir, dev, torch)
+        tool_launches, tool_numbers = tool_phases(
+            work, ds_dir, os.path.join(work, "train", "params"), ckpt_dir,
+            dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
@@ -4012,12 +4289,13 @@ def main():
         say(f"  {path} cell: {json.dumps(nums)}")
     say(f"  pipeline cell: {json.dumps(pipeline_numbers)}")
     say(f"  variants cells: {json.dumps(variant_numbers)}")
+    say(f"  tools cells: {json.dumps(tool_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
                "mixer-explain": mx_launches, **enhance_launches,
-               **cache_launches, **variant_launches}
+               **cache_launches, **variant_launches, **tool_launches}
     tgat_row = {"sample_rows": "sample_rows tgat hop2 Q=12800",
                 "attend": "attend tgat m=12800 dk=258 bfloat16",
                 "attend_drop": "attend_drop tgat m=12800 dk=258 bfloat16",
@@ -4080,8 +4358,8 @@ def main():
                         "cache": [dict(cache_rows[shape], shape=shape)
                                   for shape in cache_of[name]]
                         if name in cache_of else None})
-    say(f"[done] chip_smoke.py ran {time.perf_counter() - T0:.1f} s, the "
-        f"kernels' build included")
+    say(f"[done] chip_smoke.py ran {time.perf_counter() - T0:.1f} s of its "
+        f"1,000 s budget, the kernels' build included")
     say(json.dumps({"kernels": kernels}))
     say(gpu_line())
     say(json.dumps({"ok": True, "device": {

@@ -9,22 +9,22 @@
     python -m tempme_tpu_torch.cli sample-dataset --data enron --ratio 0.15
     python -m tempme_tpu_torch.cli analyze     --data wikipedia
     python -m tempme_tpu_torch.cli node-degrees --data wikipedia
+    python -m tempme_tpu_torch.cli visualize   --data wikipedia --base_type tgn
     python -m tempme_tpu_torch.cli validate    --data wikipedia
     python -m tempme_tpu_torch.cli supervise   --stall_timeout 600 -- python -m ...
+    python -m tempme_tpu_torch.cli profile     --data wikipedia
 
 The data directory is ``--data_dir`` or ``TEMPME_DATA_DIR``. Each command
 runs on the CUDA device; a Python caller may pass ``device="cpu"`` to
-``main``. Port of ``tempme_tpu/cli.py``; ``visualize``, ``profile`` and
-``scaling-report`` are not ported yet and exit non-zero naming their
-ROADMAP item, and ``smoke`` is ``python3 chip_smoke.py``.
+``main``. Port of ``tempme_tpu/cli.py``; ``scaling-report`` is not ported
+yet and exits non-zero naming its ROADMAP item, and ``smoke`` is
+``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import sys
 
 NOT_PORTED = {
-    "visualize": "tools/visualize.py is not ported yet (ROADMAP item A15)",
-    "profile": "tools/profile_step.py is not ported yet (ROADMAP item A15)",
     "scaling-report": "tools/scaling_report.py is not ported yet (ROADMAP "
                       "item A16)",
     "smoke": "the port's smoke run is `python3 chip_smoke.py` from the root "
@@ -62,12 +62,18 @@ def main(argv=None, device=None):
     if cmd == "node-degrees":
         from .tools.node_degrees import main as m
         return m(rest)
+    if cmd == "visualize":
+        from .tools.visualize import main as m
+        return m(rest, device=device)
     if cmd == "validate":
         from .tools.validate import main as m
         return m(rest, device=device)
     if cmd == "supervise":
         from .tools.supervise import main as m
         return m(rest)
+    if cmd == "profile":
+        from .tools.profile_step import main as m
+        return m(rest, device=device)
     if cmd in NOT_PORTED:
         print(f"{cmd}: {NOT_PORTED[cmd]}", file=sys.stderr)
         return 1

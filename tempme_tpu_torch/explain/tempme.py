@@ -296,12 +296,13 @@ class TempME(nn.Module):
 
     def edge_importance(self, feats: Features, sub: Subgraph, graphlet_imp,
                         walks: WalkInputs, training: bool = True,
-                        draws: Optional[EdgeDraws] = None, gamma=None):
+                        draws: Optional[EdgeDraws] = None, gamma=None,
+                        hops=None):
         """Walk importance -> the importance of each support edge of the
-        explained hops (``self.hops``): (imp0 [B, n], imp1 [B, n * n]) for a
-        TGN, (imp0,) for a GraphMixer, 0 on padding. ``gamma``: the Beta
-        sample's draws (ga0, gb0, ga1, gb1; a GraphMixer reads the first
-        two) or a generator (training only)."""
+        explained hops (``self.hops``, or ``hops``): (imp0 [B, n], imp1
+        [B, n * n]) for a TGN, (imp0,) for a GraphMixer, 0 on padding.
+        ``gamma``: the Beta sample's draws (ga0, gb0, ga1, gb1; a
+        GraphMixer reads the first two) or a generator (training only)."""
         b, w, _ = walks.eids.shape
         edge_walk = walks.eids.reshape(b, w * 3)
         walk_imp = graphlet_imp.expand(b, w, 3).reshape(b, w * 3)
@@ -318,7 +319,7 @@ class TempME(nn.Module):
             gate = torch.sigmoid(self.dep_d3(x).squeeze(-1))
             walk_imp = walk_imp * (0.5 + 0.5 * gate)
         imps = []
-        for hop in self.hops:
+        for hop in self.hops if hops is None else hops:
             imp = walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
             g = gamma if isinstance(gamma, torch.Generator) or gamma is None \
                 else gamma[2 * hop:2 * hop + 2]

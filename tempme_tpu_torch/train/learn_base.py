@@ -21,8 +21,11 @@ its checkpoint meta's ``n_layer`` is that block count. Every variant flag
 trains (``--agg_method``, ``--attn_mode``, ``--use_time`` for a TGAT, whose
 meta carries them with ``pos_seq_len``; ``--memory_updater``,
 ``--aggregator``, ``--message_function``, ``--embedding_module`` for a TGN),
-and ``--eval_only`` rebuilds the variant from the meta. Runs on the CUDA
-device unless the caller passes ``device="cpu"`` to ``main``.
+and ``--eval_only`` rebuilds the variant from the meta. With
+``TEMPME_DEBUG=1`` both training drivers turn on autograd's anomaly
+detection before the epoch loop and check the parameters (and a TGN's
+memory) for finite values after each epoch (``utils/debug.py``). Runs on
+the CUDA device unless the caller passes ``device="cpu"`` to ``main``.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from ..config import (add_common_args, add_model_args, config_from_args,
 from ..data.events import RandEdgeSampler, load_dataset
 from ..data.graph import build_temporal_graph
 from ..models.common import Features
+from ..utils import debug
 from ..utils import metrics as M
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.devices import resolve_device
@@ -200,6 +204,8 @@ def _stateless_main(args, cfg, device=None):
             print(f"resumed from {train_ckpt} at epoch {start_epoch}")
     logger = MetricsLogger(args.log_dir, run_name=time.strftime(
         f"{args.base_type}_{cfg.data.name}_%Y%m%d_%H%M%S"))
+    if debug.enabled():
+        debug.install()
     for epoch in range(start_epoch, cfg.train.n_epoch):
         t0 = time.time()
         batches = loops.stack_batches(ds.train, bs, shuffle=True,
@@ -222,6 +228,9 @@ def _stateless_main(args, cfg, device=None):
         losses, pos, neg = (torch.stack([a[key] for a in auxs]).cpu().numpy()
                             for key in ("loss", "pos", "neg"))
         dt = time.time() - t0
+        if debug.enabled():
+            debug.check_finite(dict(model.named_parameters()),
+                               "params after epoch")
         pos, neg = 1 / (1 + np.exp(-pos)), 1 / (1 + np.exp(-neg))
         n_events = losses.shape[0] * bs
         labels = np.r_[np.ones(bs), np.zeros(bs)]
@@ -293,12 +302,13 @@ def main(argv=None, device=None):
     args.n_degree = cfg.model.n_degree
     if args.base_type not in BASES:
         raise ValueError(f"unknown base_type {args.base_type}")
-    if args.eval_only:
-        return eval_checkpoint(args, cfg, device=device)
-    if args.base_type == "tgn":
-        from .learn_tgn import main as tgn_main
-        return tgn_main(args, cfg, device=device)
-    return _stateless_main(args, cfg, device=device)
+    with debug.restored():          # TEMPME_DEBUG=1 ends with the run
+        if args.eval_only:
+            return eval_checkpoint(args, cfg, device=device)
+        if args.base_type == "tgn":
+            from .learn_tgn import main as tgn_main
+            return tgn_main(args, cfg, device=device)
+        return _stateless_main(args, cfg, device=device)
 
 
 if __name__ == "__main__":

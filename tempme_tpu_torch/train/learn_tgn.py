@@ -36,6 +36,7 @@ from ..data.events import (RandEdgeSampler, compute_time_statistics,
 from ..data.graph import build_temporal_graph
 from ..models.common import Features
 from ..models.tgn import TGN, TGNMemoryState, init_memory_state
+from ..utils import debug
 from ..utils import metrics as M
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.devices import resolve_device
@@ -245,6 +246,8 @@ def main(args, cfg, device=None):
     logger = MetricsLogger(
         args.log_dir,
         run_name=time.strftime(f"tgn_{cfg.data.name}_%Y%m%d_%H%M%S"))
+    if debug.enabled():
+        debug.install()
     for epoch in range(start_epoch, cfg.train.n_epoch):
         t0 = time.time()
         batches = loops.stack_batches(ds.train, bs, shuffle=True,
@@ -269,6 +272,10 @@ def main(args, cfg, device=None):
                             for key in ("loss", "pos", "neg"))
         pos, neg = 1 / (1 + np.exp(-pos)), 1 / (1 + np.exp(-neg))
         dt = time.time() - t0
+        if debug.enabled():
+            debug.check_finite(dict(model.named_parameters()),
+                               "params after epoch")
+            debug.check_finite(mem, "tgn memory after epoch")
         # after a mid-epoch resume only the remaining steps ran this process
         k = losses.shape[0]
         n_events = k * bs

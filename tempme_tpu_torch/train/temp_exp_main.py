@@ -38,18 +38,23 @@ read otherwise. A train step then takes its negatives, supports and walks
 from the cache, sliced on the host in ``stack_batches``' shuffle order,
 and draws only the dropout, gate and gamma draws; test is evaluated from
 the test cache, val online, as in the JAX package. The cache holds 2-hop
-supports, so a 3-layer TGAT refuses it. The profiler hook (``--profile``,
-ROADMAP A15) is not ported and raises.
+supports, so a 3-layer TGAT refuses it. ``--profile`` traces the training
+steps of epoch index 1 (epoch 0 pays the warm-up) with ``torch.profiler``
+into ``{log_dir}/trace`` (a Chrome trace, which ``tools/op_census.py``
+reads) and prints its path; a run that does not train epoch 1 (``--n_epoch
+1``) traces nothing and says so.
 
 The explanation weights each support edge's attention probability and
 the sweep masks the support's edges, so the driver refuses, right after
-loading it, a base whose embeddings have neither (``explainable``): a
-TGAT with the LSTM or mean pool or map attention, a TGN with the identity
-or time embedding. The JAX driver fails on these too, by assertion.
+loading it, a base it cannot explain (``explainable``): a TGAT with the
+LSTM or mean pool (no explain weights) or map attention (no map form of
+the ratio sweep), a TGN with the identity or time embedding. The JAX
+driver fails on these too, by assertion.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import os.path as osp
 import time
@@ -70,6 +75,7 @@ from ..explain.tempme_tgat import TempMETGAT, TGATImpDraws
 from ..models.common import Features
 from ..ops import sampler as S
 from ..utils import metrics as M
+from ..utils import profiling
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.devices import resolve_device
 from ..utils.logging import MetricsLogger
@@ -78,6 +84,7 @@ from .base_loader import LoadedBase, load_base
 from .learn_base import write_results
 
 N_WALK_CONT = 3          # continuations per first walk event
+PROFILE_EPOCH = 1        # --profile traces this epoch's training
 DEEP_SWEEP_CHUNK = 4     # ratios per ratio_contrast of a 3-hop TGAT
 
 
@@ -101,12 +108,18 @@ def explainable(base: LoadedBase) -> None:
     base's split-attention form."""
     m = base.model
     if base.base_type == "tgat" and not m.uses_split_attention:
+        if m.agg_method == "attn":
+            why = ("map attention takes the explain weights, but the "
+                   "explainer's ratio sweep has no map form (the TGAT's "
+                   "ratio_contrast runs split attention only)")
+        else:
+            why = (f"the {m.agg_method} pool takes no explain weights (it "
+                   f"has no attention probabilities over the support's "
+                   f"edges to weight)")
         raise ValueError(
             f"the explainer needs a TGAT with --agg_method attn and "
-            f"--attn_mode prod: its explanations weight the attention "
-            f"probabilities of the support's edges, and a TGAT with "
-            f"agg_method {m.agg_method}, attn_mode {m.attn_mode} has none "
-            f"to weight (its pools take no explain weights)")
+            f"--attn_mode prod; this one has agg_method {m.agg_method}, "
+            f"attn_mode {m.attn_mode}: {why}")
     if base.base_type == "tgn" and not m.reads_support:
         raise ValueError(
             f"the explainer needs a TGN with --embedding_module "
@@ -459,15 +472,13 @@ def main(argv=None, device=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the .train_state checkpoint")
     p.add_argument("--profile", action="store_true",
-                   help="not ported (ROADMAP item A15)")
+                   help="trace the training of epoch index 1 with "
+                        "torch.profiler into {log_dir}/trace")
     p.add_argument("--use_cache", action="store_true",
                    help="train and evaluate test from the offline walk cache "
                         "(built on first use) instead of sampling online")
     p.add_argument("--cache_dir", type=str, default="cache_torch")
     args = p.parse_args(argv)
-    if args.profile:
-        raise NotImplementedError("the profiler hook is not ported yet "
-                                  "(ROADMAP item A15)")
     cfg = config_from_args(args)
     ec, tc = cfg.explainer, cfg.train
     dev = resolve_device(device)
@@ -583,13 +594,21 @@ def main(argv=None, device=None):
         f"{args.base_type}_{cfg.data.name}_%Y%m%d_%H%M%S_explainer"))
     bs = tc.batch_size
     cached = "train" in caches
+    tp = profiling.Throughput()
+    trace_dir = osp.join(args.log_dir, "trace")
     for epoch in range(start_epoch, tc.n_epoch):
         first = start_step if epoch == start_epoch else 0
         if first:
             print(f"  (mid-epoch resume: skipping {first} completed steps)")
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        # epoch 0 pays the kernels' loading and the caches' warm-up
+        traced = args.profile and epoch == PROFILE_EPOCH
+        trace_ctx = profiling.trace(trace_dir) if traced \
+            else contextlib.nullcontext()
+        trace_ctx.__enter__()
         t0 = time.time()
+        tp.start("train")
         auxs, slicing = [], 0.0
         order = loops.epoch_order(len(ds.train), bs, shuffle=True,
                                   seed=tc.seed + epoch) if cached else None
@@ -611,15 +630,18 @@ def main(argv=None, device=None):
                                 meta=dict(epoch=epoch, step=i + 1, best=best))
         agg = {k: torch.stack([a[k] for a in auxs]).cpu().numpy()
                for k in ("loss", "fid_prob", "fid_logit", "y_ori", "y_pred")}
-        dt = time.time() - t0                 # the steps, through their sync
         n_ev = len(auxs) * bs
+        rate = tp.stop("train", units=n_ev)   # the steps, through their sync
+        trace_ctx.__exit__(None, None, None)
+        if traced:
+            print(f"profiler trace -> {profiling.latest_trace(trace_dir)}")
         aps = [M.average_precision_score(y, s)
                for y, s in zip(agg["y_ori"], agg["y_pred"])]
         train = {"loss": float(np.mean(agg["loss"])),
                  "aps": float(np.mean(aps)),
                  "fid_prob": float(np.mean(agg["fid_prob"])),
                  "fid_logit": float(np.mean(agg["fid_logit"])),
-                 "events_per_s": n_ev / dt}
+                 "events_per_s": rate}
         if cached:
             train["cache_slice_ms_per_step"] = slicing / len(auxs) * 1e3
         print(f"epoch {epoch}: loss={train['loss']:.4f} "
@@ -653,6 +675,10 @@ def main(argv=None, device=None):
             print(f"  saved best explainer -> {ckpt} (score={best:.4f})")
         save_checkpoint(train_ckpt, state.state_dict(),
                         meta=dict(epoch=epoch, best=best))
+    if args.profile and not start_epoch <= PROFILE_EPOCH < tc.n_epoch:
+        print(f"--profile: no epoch traced (epoch index {PROFILE_EPOCH} is "
+              f"traced; this run trained epochs {start_epoch} to "
+              f"{tc.n_epoch - 1})")
     if best_ev is not None:
         results(best_ev)
     elif resumed:

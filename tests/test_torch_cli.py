@@ -1,8 +1,8 @@
 """The port's command line and pipeline on the CPU, on the ``ml_synth``
 layout: ``cli.main`` sends each command to its entry point with its
-arguments and the device, runs the host tools, and refuses the commands
-that are not ported (non-zero, naming their ROADMAP item or
-``chip_smoke.py``); ``pipeline`` (``batch_train``) runs learn-base ->
+arguments and the device (``visualize`` and ``profile`` too), runs the
+host tools, and refuses the commands that are not ported (non-zero,
+naming their ROADMAP item or ``chip_smoke.py``); ``pipeline`` (``batch_train``) runs learn-base ->
 explain -> enhance for a GraphMixer, one epoch a stage, in a scratch
 working directory with ``TEMPME_DATA_DIR`` set, and a failing stage is
 recorded as ``"error"`` and makes the exit code non-zero.
@@ -21,7 +21,9 @@ DRIVERS = {"learn-base": "tempme_tpu_torch.train.learn_base",
            "explain": "tempme_tpu_torch.train.temp_exp_main",
            "enhance": "tempme_tpu_torch.train.enhance_main",
            "pipeline": "tempme_tpu_torch.train.batch_train",
-           "validate": "tempme_tpu_torch.tools.validate"}
+           "validate": "tempme_tpu_torch.tools.validate",
+           "visualize": "tempme_tpu_torch.tools.visualize",
+           "profile": "tempme_tpu_torch.tools.profile_step"}
 
 
 @pytest.mark.parametrize("cmd", sorted(DRIVERS))
@@ -55,8 +57,8 @@ def test_host_tools_run(workdir, tmp_path, capsys):  # noqa: F811
 
 
 @pytest.mark.parametrize("cmd,names", [
-    ("visualize", "A15"), ("profile", "A15"), ("scaling-report", "A16"),
-    ("smoke", "python3 chip_smoke.py"), ("no-such-command", "unknown")])
+    ("scaling-report", "A16"), ("smoke", "python3 chip_smoke.py"),
+    ("no-such-command", "unknown")])
 def test_unported_commands_exit_non_zero(cmd, names, capsys):
     assert cli.main([cmd, "--data", "synth"], device="cpu") == 1
     assert names in capsys.readouterr().err

@@ -6,7 +6,7 @@ the results JSON and checkpoints, the 16-ratio sweep's metrics, a resume
 (per epoch and mid-epoch after a simulated kill) that ends in the same
 train state, tensor by tensor with ``torch.equal`` (on the CPU the step is
 deterministic), ``--eval_only`` reproducing the saved explainer's test
-metrics exactly, and the flags that are not ported raising.
+metrics exactly, and ``--profile`` with one epoch tracing nothing.
 """
 import json
 
@@ -107,9 +107,14 @@ def test_resume_continues_bit_for_bit(workdir, base_dir, tmp_path,
 
 
 def test_unported_flags_name_their_roadmap_items(workdir, base_dir,
-                                                 tmp_path):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="A15"):
-        temp_exp_main.main(_argv(workdir, tmp_path, 1, "--profile"),
-                           device="cpu")
+                                                 tmp_path,
+                                                 capsys):  # noqa: F811
+    """``--profile`` (ported) traces epoch index 1 only: a one-epoch run
+    traces nothing and says so."""
+    ck = _copy_base(base_dir, tmp_path / "run")
+    temp_exp_main.main(_argv(workdir, ck, 1, "--profile", "--bs", "100",
+                             "--test_bs", "100"), device="cpu")
+    assert "--profile: no epoch traced" in capsys.readouterr().out
+    assert not (workdir / "tb" / "trace").exists()
     blob = torch.load(base_dir / "tgnn" / "tgn_synth.pt", weights_only=True)
     assert set(blob) == {"params", "memory"}

@@ -202,12 +202,19 @@ def test_jax_checkpoint_loads_through_load_base(world, tmp_path):
                        ref)
 
 
+REFUSAL = {"map": "the explainer's ratio sweep has no map form",
+           "lstm": "the lstm pool takes no explain weights",
+           "mean": "the mean pool takes no explain weights"}
+
+
 @pytest.mark.parametrize("variant", ["map", "lstm", "mean"])
 def test_explainer_refuses_a_tgat_without_split_attention(world, variant):
     w = world
     base = LoadedBase("tgat", _port_model(w, 2, VARIANTS[variant]), None, {})
     with pytest.raises(ValueError, match="--agg_method attn and "
                                          "--attn_mode prod"):
+        explainable(base)
+    with pytest.raises(ValueError, match=REFUSAL[variant]):
         explainable(base)
     for kw in (VARIANTS["pos"], VARIANTS["empty"]):
         explainable(LoadedBase("tgat", _port_model(w, 2, kw), None, {}))
