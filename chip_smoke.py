@@ -28,23 +28,35 @@ script
    kernel; stops a second run at a mid-epoch checkpoint and resumes it;
    holds one train step on the card against the same step on the CPU (same
    weights, Adam state, memory and draws); traces 20 train steps;
-6. trains the TempME explainer for one epoch on the frozen TGN of step 5
+6. trains the same TGN data-parallel (``tempme_tpu_torch/parallel/``)
+   from the checkpoint of step 5 at full width: over nccl at world size 1
+   in this process, bitwise equal to the plain card step over 3 steps;
+   then 2 ranks spawned on this card over gloo with CUDA tensors, 20
+   global steps of 256 (128 a rank) at float32, both ranks' states bitwise
+   equal, each of the first 3 steps held against the 1-process card step
+   from the same state (loss, gradients, Adam state, parameters, memory),
+   the state after those 3 steps in a row held against the 1-process card
+   run's, within the distance of the same run on the CPU from it (the
+   witness of round-off carried over steps), 6 launches a rank a step of
+   each training kernel, the step's wall ms and the collectives' ms and
+   bytes (the ranks share one card: not a scaling measurement);
+7. trains the TempME explainer for one epoch on the frozen TGN of step 5
    through ``temp_exp_main.main`` over the stream's first 30,000 events
-   (``ml_wikishape30k``, the cut of steps 8-12; 169 steps at batch 100,
+   (``ml_wikishape30k``, the cut of steps 10-13; 169 steps at batch 100,
    20 neighbours, 60 walks a side, then val and test with fidelity and the
    16-ratio sweep), checks its numbers, files and the launches of all seven kernels
    per step; stops a second run at a mid-epoch checkpoint and resumes it;
    runs ``--eval_only`` on the saved explainer; holds one explainer train
    step and one eval step's ratio sweep on the card against the CPU
    (float32, same draws); traces 20 explainer train steps;
-7. holds the kernels against their plain versions at the TGAT paths'
+8. holds the kernels against their plain versions at the TGAT paths'
    shapes too (3 layers, d_k 258 and the uslegis TGAT's 173, rows up to
    40,000, ``sample_rows`` at hop 3) and at the sizes that once failed to
    launch (``sample_rows`` at n 3,073 and 4,096, ``walk_to_edge`` at 4,097
    and 8,192 slots a row);
-8. trains TGAT at ``learn_base.main``'s default flags (3 layers, 2 heads,
-   the deep-TGAT batch 32, width 172) for one epoch on the first 30,000
-   events of the stream, ``ml_wikishape30k`` (a cut of scale, not of
+9. trains TGAT at ``learn_base.main``'s default flags (3 layers, 2 heads,
+   the deep-TGAT batch 32, width 172) for one epoch on the first 15,000
+   events of the stream, ``ml_wikishape15k`` (a cut of scale, not of
    width), and checks the loss, the APs, the files and the launches
    per step (each block's forward again in the backward: its blocks are
    checkpointed); resumes the state of a run stopped at a mid-epoch
@@ -53,13 +65,13 @@ script
    float32 and bf16; trains the explainer one epoch on the TGAT (3-hop
    supports, the sweep in chunks of 4 ratios), resumes it, runs its
    ``--eval_only``; traces 20 TGAT train steps;
-9. trains GraphMixer at ``learn_base.main``'s default flags (3 mixer
+10. trains GraphMixer at ``learn_base.main``'s default flags (3 mixer
    blocks, 20 neighbours = tokens, width 172, batch 256) for one epoch on
-   the same 30,000-event cut, and checks the loss, the APs, the files
+   the 30,000-event cut of step 7, and checks the loss, the APs, the files
    (meta ``n_layer`` 3, the block count) and 6 ``sample_rows`` launches
    per step; resumes the state of a run stopped at a mid-epoch
    checkpoint; runs ``--eval_only`` on that
-   GraphMixer and on the TGAT of step 8, each reproducing the test metrics
+   GraphMixer and on the TGAT of step 9, each reproducing the test metrics
    its training run wrote exactly, and on the TGN of step 5, which scores
    test from the checkpoint's memory and must equal ``evaluate_tgn`` run
    from that memory, exactly; holds one GraphMixer train step and the
@@ -69,24 +81,24 @@ script
    ``--eval_only`` and holds one explainer train step and one eval step's
    sweep against the CPU; traces 20 GraphMixer and 20 explainer train
    steps;
-10. runs enhance on the same cut for a TGN trained there, the GraphMixer
-   of step 9 (2 epochs, the second resumed from the first's state) and
-   the TGAT of step 8, holds one enhance step of each against the CPU and
+11. runs enhance on the same cut for a TGN trained there, the GraphMixer
+   of step 10 (2 epochs, the second resumed from the first's state) and
+   the TGAT of step 9, holds one enhance step of each against the CPU and
    traces the TGN's;
-11. builds the offline walk cache of the TGN's cut through ``python -m
+12. builds the offline walk cache of the TGN's cut through ``python -m
    tempme_tpu_torch.cli preprocess`` (train and test, batch 128, 6
    ``sample_rows``, 3 ``sample_union`` and 3 ``sample_masked`` launches a
    batch; the kernels are also held against their plain versions at these
    shapes in step 3), checks the files, the ids, the classes, the
    negatives, and one batch built on the card against the CPU; trains the
    explainer one epoch from it (``cli explain --use_cache``) on the TGN
-   of step 10 with no sampling launch on its train steps, reuses the
+   of step 11 with no sampling launch on its train steps, reuses the
    files in a second call, and holds one cached train step against the
    CPU;
-12. runs ``cli pipeline`` (learn-base -> explain -> enhance) for a
+13. runs ``cli pipeline`` (learn-base -> explain -> enhance) for a
    GraphMixer on the cut, one epoch a stage, in a scratch working
    directory, and ``cli validate``;
-13. trains every base variant of the drivers' flags on the stream's first
+14. trains every base variant that the training flags accept on the first
    5,000 events (``ml_wikishape5k``, the node table trimmed; width 172):
    a TGN (batch 256) (a) ``--memory_updater rnn --aggregator mean
    --message_function identity``, (b) ``--embedding_module identity``,
@@ -100,18 +112,18 @@ script
    (a process that exits non-zero with the reason); holds the sampler's
    exp-decay and binary modes at Q 2,000 on the card against the CPU, bit
    for bit;
-14. runs the tools: ``tools/profile_step.py`` on the wikipedia-shaped
+15. runs the tools: ``tools/profile_step.py`` on the wikipedia-shaped
    stream (each stage of the TGN train step timed by itself, 6
    ``sample_rows``, ``attend_drop`` and ``attend_bwd`` launches a full
    step, a trace of five steps); ``tools/op_census.py --capture enron``
    (shares that sum to 100%, the port's kernels found by name);
    ``temp_exp_main --profile --n_epoch 2`` on the TGN of step 5 over the
    stream's first 2,000 events (the trace of epoch 1 holds the walk
-   kernels); ``cli visualize`` on the explainer of step 6 (the figures,
+   kernels); ``cli visualize`` on the explainer of step 7 (the figures,
    and one batch's plotted arrays on the card against the CPU); one
    ``learn_base`` epoch under ``TEMPME_DEBUG=1``; the native host runtime
    built with g++ (``load_csv`` against numpy, the host picks' cuts);
-15. prints its run time against its 1,000 s budget, one JSON line of
+16. prints its run time against its 1,000 s budget, one JSON line of
    kernel numbers, the card again, and the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -840,6 +852,256 @@ def profile_training(ds, out, dev, n_steps=20):
     profile_steps(run, n_steps)
 
 
+DP_STEPS = 20                        # [dp]'s global steps on 2 ranks
+DP_CHECKED = 3                       # the steps held against 1 process
+DP_PER_STEP = dict(sample_rows=6, attend=0, attend_drop=6, attend_bwd=6)
+
+
+def dp_spec(ds, blob, steps, **model):
+    """A dry-run spec (``parallel/dryrun.py``) of the TGN of [train] at full
+    width on the train split: ``steps`` global batches of 256 (shuffled),
+    the draws from each rank's generator (made rank 0's by ``place``), the
+    checkpoint's parameters, Adam state and memory."""
+    import torch
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.parallel import dryrun
+    from tempme_tpu_torch.train import loops
+    batches = loops.stack_batches(ds.train, BATCH, True, SEED + 5, "cpu")
+    batches = [loops.Batch(*(x[i] for x in batches)) for i in range(steps)]
+    kwargs = dict(node_dim=ds.node_feat.shape[1],
+                  edge_dim=ds.edge_feat.shape[1],
+                  num_nodes=ds.full.num_nodes, n_layers=2, n_head=2,
+                  dropout=DROPOUT, **model)
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    run = dryrun.make_run(kwargs, batches, LR, seed=SEED + 6, state=blob,
+                          record=range(DP_CHECKED + 1))
+    return dryrun.make_spec(ds.train, ds.full.num_nodes, ds.full.num_edges,
+                            ds.node_feat, ds.edge_feat, dst, N_DEGREE, [run])
+
+
+def dp_chained(ds, spec, res, dev, torch):
+    """The dp run's state after its first ``DP_CHECKED`` steps held in a
+    row against the plain card step's after the same steps in a row (the
+    same batches and draws, float32). Adam turns round-off in a gradient
+    into a step of up to lr, and the stream's time deltas of up to 7e5 s
+    magnify that in the stored messages' time encodings, so the
+    tolerance is a witness measured here: the plain CPU step after the
+    same steps in a row, against the same card run. The dp run must be no
+    farther from the card run than the CPU run is, in the loss, the
+    parameters, each Adam moment (over its tensor's largest) and the float
+    memory, and both must have every memory flag equal. Returns both
+    distances (``chain_distance``) and the two replays' seconds."""
+    from tempme_tpu_torch.parallel import dryrun
+    from tempme_tpu_torch.train.learn_tgn import TGNTrainStep
+    run, cpu_dev = spec["runs"][0], torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(run["seed"])      # rank 0's generator, which place shares
+    g, feats, dst, model, opt, _ = dryrun.build_run(spec, run, dev)
+    drawer = TGNTrainStep(model, g, feats, dst, spec["n"], opt)
+    size = run["batches"][0].src.shape[0]
+    draws = [to_device(drawer.draw(gen, size), cpu_dev)
+             for _ in range(DP_CHECKED)]
+    del g, feats, dst, model, opt, drawer
+    ref = dryrun.make_run(run["model"], run["batches"][:DP_CHECKED], LR,
+                          draws=draws, state=run["state"],
+                          record=(DP_CHECKED,))
+    t0 = time.perf_counter()
+    card = dryrun.replay_plain(dict(spec, runs=[ref]), dev)[0]
+    t1 = time.perf_counter()
+    cpu = dryrun.replay_plain(dict(spec, runs=[ref]), cpu_dev)[0]
+    t2 = time.perf_counter()
+    def at(r):
+        return dict(r["states"][DP_CHECKED], loss=r["loss"][DP_CHECKED - 1])
+    dp, witness = chain_distance(at(res), at(card)), \
+        chain_distance(at(cpu), at(card))
+    for key, d in dp.items():
+        if d > witness[key] or (key == "flags" and d + witness[key]):
+            raise AssertionError(
+                f"[dp] after {DP_CHECKED} steps in a row: {key} is {d} from "
+                f"the card run, the CPU run {witness[key]}")
+    return dict(dp=dp, cpu=witness, card_s=t1 - t0, cpu_s=t2 - t1)
+
+
+def hold_dp_step(got, want, what):
+    """One dp step's state against the 1-process step's from the same
+    state, batch and draws, float32 on the card: the loss rtol 1e-4;
+    gradients and Adam's first moments rtol 1e-3, atol 1e-4 of the
+    tensor's largest, its second moments rtol 2e-3, atol 2e-4 of the
+    largest; the parameters rtol 1e-5, atol 1e-6 where the gradient is at
+    least 1e-4 of its tensor's largest, within lr elsewhere (Adam turns
+    round-off gradients into steps of up to lr); the memory rtol 2e-4,
+    atol 1e-5, its flags exactly. Returns the worst errors. (Steps held
+    in a row, not each from the same state, part further: an unsettled
+    entry of the time encoder's frequencies moves by up to lr, and the
+    wikipedia-shaped stream's time deltas of up to 7e5 s turn that into
+    visible changes of the stored messages' time encodings.)"""
+    import torch
+    la, lb = got["loss"], want["loss"]
+    if not abs(la - lb) <= 1e-4 * abs(lb):
+        raise AssertionError(f"{what}: loss {la}, want {lb}")
+    worst = dict(loss=abs(la - lb) / abs(lb), grad=0.0, param=0.0,
+                 memory=0.0)
+    for i, (name, gb) in enumerate(want["grads"].items()):
+        ga = got["grads"][name]
+        if (ga is None) != (gb is None):
+            raise AssertionError(f"{what}: {name} has a gradient on one "
+                                 f"side only")
+        if gb is None:
+            continue
+        top = max(gb.abs().max().item(), 1e-30)
+        torch.testing.assert_close(ga, gb, rtol=1e-3, atol=1e-4 * top,
+                                   msg=lambda m: f"{name} grad: {m}")
+        worst["grad"] = max(worst["grad"], (ga - gb).abs().max().item() / top)
+        sa, sb = got["opt_state"]["state"][i], want["opt_state"]["state"][i]
+        for key, rtol in (("exp_avg", 1e-3), ("exp_avg_sq", 2e-3)):
+            t = max(sb[key].abs().max().item(), 1e-30)
+            torch.testing.assert_close(sa[key], sb[key], rtol=rtol,
+                                       atol=rtol / 10 * t,
+                                       msg=lambda m: f"{name} {key}: {m}")
+        settled = gb.abs() >= 1e-4 * top
+        pa, pb = got["params"][name], want["params"][name]
+        torch.testing.assert_close(pa[settled], pb[settled], rtol=1e-5,
+                                   atol=1e-6,
+                                   msg=lambda m: f"{name} param: {m}")
+        if settled.any():
+            worst["param"] = max(worst["param"],
+                                 (pa - pb)[settled].abs().max().item())
+        if (pa - pb).abs().max().item() > LR * 1.001:
+            raise AssertionError(f"{what}: {name} differs by more than lr")
+    for name, mb in want["memory"].items():
+        ma = got["memory"][name]
+        if mb.dtype == torch.bool:
+            if not torch.equal(ma, mb):
+                raise AssertionError(f"{what}: memory {name} differs")
+            continue
+        torch.testing.assert_close(ma, mb, rtol=2e-4, atol=1e-5,
+                                   msg=lambda m: f"memory {name}: {m}")
+        worst["memory"] = max(worst["memory"], (ma - mb).abs().max().item())
+    return worst
+
+
+def chain_distance(got, want):
+    """How far one recorded state is from another after steps held in a
+    row: the loss's relative error, the parameters' largest difference,
+    Adam's moments' largest difference over their tensor's largest, the
+    float memory fields' largest difference, the flag entries that
+    differ."""
+    import torch
+    d = dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+             param=0.0, exp_avg=0.0, exp_avg_sq=0.0, memory=0.0, flags=0)
+    for name, pb in want["params"].items():
+        d["param"] = max(d["param"],
+                         (got["params"][name] - pb).abs().max().item())
+    for i, sb in want["opt_state"]["state"].items():
+        sa = got["opt_state"]["state"][i]
+        for key in ("exp_avg", "exp_avg_sq"):
+            top = max(sb[key].abs().max().item(), 1e-30)
+            d[key] = max(d[key],
+                         (sa[key] - sb[key]).abs().max().item() / top)
+    for name, mb in want["memory"].items():
+        ma = got["memory"][name]
+        if mb.dtype == torch.bool:
+            d["flags"] += int((ma != mb).sum())
+        else:
+            d["memory"] = max(d["memory"], (ma - mb).abs().max().item())
+    return d
+
+
+def dp_phase(ds, out, dev, torch):
+    """[dp]: (i) the sharded step over nccl at world size 1 in this
+    process, bitwise the plain card step over 3 steps (bf16 projections,
+    as ``learn_base`` trains); (ii) 2 ranks spawned on this card over
+    gloo with CUDA tensors, 20 global steps of 256 (128 a rank) at
+    float32: both ranks' states bitwise equal, each of the first 3 steps
+    held against the plain card step from the same state
+    (``hold_dp_step``), the state after those 3 steps in a row against
+    the plain card step's in a row (``dp_chained``), 6 launches a rank a step of ``sample_rows``,
+    ``attend_drop`` and ``attend_bwd``, the median step wall ms and the
+    collectives' ms and bytes a step. Returns (the launches of rank 0
+    over the 20 steps, numbers)."""
+    import statistics
+    import torch.distributed as dist
+    from tempme_tpu_torch.parallel import dryrun, mesh, multihost
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint
+    blob, _ = load_checkpoint(os.path.join(
+        out, "params", "tgnn", f"tgn_{DATA_NAME}.pt.train_state"),
+        map_location="cpu")
+    state = {k: blob[k] for k in ("params", "opt_state", "memory")}
+
+    t0 = time.perf_counter()
+    spec = dp_spec(ds, state, DP_CHECKED)
+    plain = dryrun.replay_plain(spec, dev)
+    multihost.initialize("nccl", f"tcp://localhost:{dryrun.free_port()}",
+                         world_size=1, rank=0, device=dev)
+    try:
+        got = dryrun.replay(spec, mesh.make_mesh(), dev)
+    finally:
+        dist.destroy_process_group()
+    dryrun.assert_ranks_equal([plain, got])
+    want = {k: v * DP_CHECKED for k, v in DP_PER_STEP.items()}
+    check_launches(got[0]["launches"], want)
+    say(f"  (i) nccl, world size 1: {DP_CHECKED} steps (bf16, dropout "
+        f"{DROPOUT}) bitwise equal to the plain card step: losses "
+        f"{got[0]['loss']}; launches {got[0]['launches']}; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    spec = dp_spec(ds, state, DP_STEPS, compute_dtype=torch.float32)
+    spec["runs"][0]["timed"] = True
+    with tempfile.TemporaryDirectory(prefix="dp_") as work:
+        ranks = dryrun.run_spec(spec, 2, "gloo", f"cuda:{dev.index or 0}",
+                                work, threads=2, timeout=300)
+    ranks_s = time.perf_counter() - t0
+    dryrun.assert_ranks_equal(ranks)
+    for rank in ranks:
+        check_launches(rank[0]["launches"],
+                       {k: v * DP_STEPS for k, v in DP_PER_STEP.items()})
+    res, run = ranks[0][0], spec["runs"][0]
+    refs = [dryrun.make_run(run["model"], [run["batches"][k - 1]], LR,
+                            state=res["states"][k - 1], record=(1,))
+            for k in range(1, DP_CHECKED + 1)]
+    plain = dryrun.replay_plain(dict(spec, runs=refs), dev)
+    worst = {}
+    for k, ref in enumerate(plain, start=1):
+        w = hold_dp_step(dict(res["states"][k], loss=res["loss"][k - 1]),
+                         dict(ref["states"][1], loss=ref["loss"][0]),
+                         f"[dp] step {k}")
+        worst = {key: max(v, worst.get(key, 0.0)) for key, v in w.items()}
+    chained = dp_chained(ds, spec, res, dev, torch)
+    comm = res["comm"]
+    numbers = dict(
+        step_ms=statistics.median(res["wall_ms"]),
+        step_ms_min=min(res["wall_ms"]), step_ms_max=max(res["wall_ms"]),
+        collective_ms=statistics.median(c["ms"] for c in comm),
+        collective_bytes=comm[0]["bytes"], collectives=comm[0]["calls"],
+        ranks_s=ranks_s, **{f"worst_{k}": v for k, v in worst.items()},
+        **{f"chained_{who}_{k}": v for who in ("dp", "cpu")
+           for k, v in chained[who].items()})
+    if len({(c["bytes"], c["calls"]) for c in comm}) != 1:
+        raise AssertionError(f"[dp] collectives vary between steps: {comm}")
+    say(f"  (ii) 2 gloo ranks on one card (CUDA tensors), {DP_STEPS} "
+        f"global steps of {BATCH} at float32: ranks bitwise equal; each "
+        f"of the first {DP_CHECKED} against the 1-process card step from "
+        f"the same state, batch and draws: worst loss "
+        f"rtol {worst['loss']:.3e}, gradient {worst['grad']:.3e} of its "
+        f"tensor's largest, settled param {worst['param']:.3e}, memory "
+        f"{worst['memory']:.3e}; launches a rank a step "
+        f"{ {k: v // DP_STEPS for k, v in res['launches'].items()} }")
+    say(f"  after {DP_CHECKED} steps in a row, from the 1-process card "
+        f"run: dp {chained['dp']}; the CPU run (the witness) "
+        f"{chained['cpu']}; the card and CPU replays took "
+        f"{chained['card_s']:.2f} and {chained['cpu_s']:.2f} s")
+    say(f"  step {numbers['step_ms']:.3f} ms median wall (min "
+        f"{numbers['step_ms_min']:.3f}, max {numbers['step_ms_max']:.3f}, "
+        f"with a device sync around each collective), collectives "
+        f"{numbers['collective_ms']:.3f} ms and "
+        f"{numbers['collective_bytes']:,} bytes a rank in "
+        f"{numbers['collectives']} calls a step; the 2 ranks took "
+        f"{ranks_s:.2f} s with their start. Both ranks share one card: not "
+        f"a scaling measurement")
+    return res["launches"], numbers
+
+
 EXPLAIN_BATCH = 100
 EXPLAIN_RESUME_STEP = 100
 
@@ -1431,18 +1693,23 @@ def profile_explainer(ds, ckpt_dir, dev, n_steps=20, base_type="tgn",
 
 
 # ---------------------------------------------------------------------------
+# The first CUT_EVENTS events of the wikipedia-shaped stream: the cut of the
+# explainer, GraphMixer, enhance, cache and pipeline phases (a cut of scale,
+# not of width). [explain] explains the TGN of [train] over it (its
+# whole-stream epoch, 911 train and 474 eval steps, left the script no room)
+CUT_EVENTS = 30_000
+CUT_DATA = "wikishape30k"
+EXPLAIN_DATA = CUT_DATA
 # TGAT (3 layers, 2 heads, n_degree 20, width 172: d_k ceil(516 / 2) = 258)
-# on the first TGAT_EVENTS events of the wikipedia-shaped stream: a cut of
-# scale, not of width
-TGAT_EVENTS = 30_000
-TGAT_DATA = "wikishape30k"
-# [explain] explains the TGN of [train] over the same cut (its whole-stream
-# epoch, 911 train and 474 eval steps, left the script no room)
-EXPLAIN_DATA = TGAT_DATA
+# on the first TGAT_EVENTS events: its epoch on the 30,000-event cut (528
+# train and 282 eval steps at batch 32, then its explainer) took the script
+# past its time budget on a slower host
+TGAT_EVENTS = 15_000
+TGAT_DATA = "wikishape15k"
 TGAT_BATCH = 32                      # the deep-TGAT batch rule's (not passed)
 TGAT_REF_BATCH = 8                   # the card-vs-CPU train step's batch
-TGAT_CKPT_STEP = 500                 # [tgat-train]'s mid-epoch checkpoint
-TGAT_EXPLAIN_RESUME_STEP = 100
+TGAT_CKPT_STEP = 200                 # [tgat-train]'s mid-epoch checkpoint
+TGAT_EXPLAIN_RESUME_STEP = 50
 # launches per step: a train step samples 3 sides x 3 hops, embeds 4 times
 # (src twice, tgt, bgd) through 3 + 2 + 1 (layer, level) blocks in the
 # training form, recomputes each block in the backward (checkpointed
@@ -2102,10 +2369,10 @@ def check_tgat_kernels(g, torch, dev):
 
 # ---------------------------------------------------------------------------
 # GraphMixer (3 mixer blocks, 20 neighbours = tokens, width 172: token FFN
-# int(0.5 * 20) = 10, channel FFN 4 * 172 = 688) on the TGAT phases' cut of
-# the stream, its first TGAT_EVENTS events (on all of it the script ran
-# past its time budget): a cut of scale, not of width
-MIXER_DATA = TGAT_DATA
+# int(0.5 * 20) = 10, channel FFN 4 * 172 = 688) on the stream's first
+# CUT_EVENTS events (on all of it the script ran past its time budget): a
+# cut of scale, not of width
+MIXER_DATA = CUT_DATA
 MIXER_BATCH = 256
 MIXER_REF_BATCH = 64                 # the card-vs-CPU train step's batch
 MIXER_CKPT_STEP = 50                 # [mixer-train]'s mid-epoch checkpoint
@@ -2359,14 +2626,14 @@ def graphmixer_phases(work, ds_dir, dsm, dev, torch):
 
 
 # ---------------------------------------------------------------------------
-# Enhance, the pipeline's third stage, on the same 30,000-event cut: a TGN
+# Enhance, the pipeline's third stage, on the 30,000-event cut: a TGN
 # base trained here first, the GraphMixer of [mixer-train], and (walks
 # alone) the TGAT branch with the n_degree of [tgat-train]'s checkpoint
-ENHANCE_DATA = TGAT_DATA
+ENHANCE_DATA = CUT_DATA
 # the same events for the TGN, its node table ending at the cut's largest
 # node id (the cut never holds the last 5 item ids, whose rows a TGN's
 # memory would lack)
-ENHANCE_TGN_DATA = TGAT_DATA + "tgn"
+ENHANCE_TGN_DATA = CUT_DATA + "tgn"
 ENHANCE_BATCH = 100                  # enhance_main's default
 ENHANCE_REF_BATCH = 32               # the card-vs-CPU step's batch
 # launches per step: every base samples 3 sides x 2 hops and each side's
@@ -2397,28 +2664,32 @@ def enhance_argv(ds_dir, ckpt_dir, out, base_type, data, *extra):
             "--results_dir", os.path.join(out, "results"), *extra]
 
 
-def enhance_ckpt_dir(out, base_ckpt_dir, base_type, data):
+def enhance_ckpt_dir(out, base_ckpt_dir, base_type, data, base_data=None):
     """A checkpoint directory under ``out`` that holds a copy of the base's
-    checkpoint (``tgnn/``), beside which enhance writes its own."""
+    checkpoint (``tgnn/``; trained on ``base_data``, by default ``data``)
+    under ``data``'s name, beside which enhance writes its own."""
     import shutil
     mine = os.path.join(out, "params")
     os.makedirs(os.path.join(mine, "tgnn"))
     for suffix in ("", ".json"):
         shutil.copy(os.path.join(base_ckpt_dir, "tgnn",
-                                 f"{base_type}_{data}.pt{suffix}"),
-                    os.path.join(mine, "tgnn"))
+                                 f"{base_type}_{base_data or data}.pt"
+                                 f"{suffix}"),
+                    os.path.join(mine, "tgnn",
+                                 f"{base_type}_{data}.pt{suffix}"))
     return mine
 
 
 def enhance(ds, ds_dir, base_ckpt_dir, out, torch, base_type,
-            data=ENHANCE_DATA, epochs=1, per_step=None):
+            data=ENHANCE_DATA, epochs=1, per_step=None, base_data=None):
     """``enhance_main.main`` for ``epochs`` epochs at full width on the
     card on the base of ``base_ckpt_dir``, with ``per_step`` launches of
     each kernel per train and eval step (``ENHANCE_PER_STEP`` of the base
     type by default): finite losses, APs in
     [0, 1], the files written, the saved base moved off the loaded one. A
     run of 2 epochs also keeps a copy of its enhance directory as it stood
-    after epoch 0. Returns (launches, numbers, checkpoint dir, that
+    after epoch 0. ``base_data``: the stream the base was trained on, when
+    not ``data``. Returns (launches, numbers, checkpoint dir, that
     copy)."""
     import math
     import shutil
@@ -2432,7 +2703,8 @@ def enhance(ds, ds_dir, base_ckpt_dir, out, torch, base_type,
     per_step = per_step or ENHANCE_PER_STEP[base_type]
     want = {k: epochs * sum(per_step[p][k] * n for p, n in steps.items())
             for k in kernels}
-    ckpt_dir = enhance_ckpt_dir(out, base_ckpt_dir, base_type, data)
+    ckpt_dir = enhance_ckpt_dir(out, base_ckpt_dir, base_type, data,
+                                base_data)
     snapshot = os.path.join(out, "after_epoch0")
     save = enhance_main.save_checkpoint
 
@@ -2833,7 +3105,7 @@ def enhance_phases(work, ds_dir, ds30, dev, torch):
     from tempme_tpu_torch.data.events import load_dataset
     from tempme_tpu_torch.train import learn_base
     base_out = os.path.join(work, "enhance_tgn_base")
-    write_stream(ds_dir, ENHANCE_TGN_DATA, TGAT_EVENTS, trim_nodes=True)
+    write_stream(ds_dir, ENHANCE_TGN_DATA, CUT_EVENTS, trim_nodes=True)
     ds_tgn = load_dataset(ENHANCE_TGN_DATA, ds_dir)
     say(f"[enhance-tgn] learn_base --base_type tgn on ml_{ENHANCE_TGN_DATA} "
         f"(the events of ml_{ENHANCE_DATA}, the node table cut to its "
@@ -2872,7 +3144,8 @@ def enhance_phases(work, ds_dir, ds30, dev, torch):
         "[tgat-train]'s checkpoint meta): one epoch, then test")
     launches["enhance-tgat"], numbers["enhance-tgat"], tgat_ckpt, _ = \
         enhance(ds30, ds_dir, os.path.join(work, "tgat", "params"),
-                os.path.join(work, "enhance_tgat"), torch, "tgat")
+                os.path.join(work, "enhance_tgat"), torch, "tgat",
+                base_data=TGAT_DATA)
     say(f"[enhance-reference] one enhance train step (batch "
         f"{ENHANCE_REF_BATCH}, dropout {DROPOUT}, the same draws) of each "
         f"base on the card against the CPU from the state its run wrote, at "
@@ -3242,14 +3515,14 @@ def cache_phases(work, ds_dir, dev, torch, online_ms):
 
 
 def pipeline_phase(work, ds_dir, torch):
-    """[pipeline]: ``cli pipeline`` for a GraphMixer on ``TGAT_DATA``, one
+    """[pipeline]: ``cli pipeline`` for a GraphMixer on ``CUT_DATA``, one
     epoch a stage, in a scratch working directory with ``TEMPME_DATA_DIR``
     set; then ``cli validate``. Returns the stages' numbers."""
     import math
     from tempme_tpu_torch import cli
     cwd = os.path.join(work, "pipeline_cwd")
     os.makedirs(cwd)
-    argv = ["pipeline", "--data", TGAT_DATA, "--base_types", "graphmixer",
+    argv = ["pipeline", "--data", CUT_DATA, "--base_types", "graphmixer",
             "--n_epoch_base", "1", "--n_epoch_exp", "1", "--n_epoch_enh",
             "1"]
     say(f"[pipeline] cli {' '.join(argv)} (learn-base: 2 mixer blocks, "
@@ -3275,10 +3548,10 @@ def pipeline_phase(work, ds_dir, torch):
             if not (isinstance(r[stage], float) and math.isfinite(r[stage])
                     and 0.0 <= r[stage] <= 1.0):
                 raise AssertionError(f"pipeline {stage} {r[stage]}")
-        for f in (f"params_torch/tgnn/graphmixer_{TGAT_DATA}.pt",
-                  f"params_torch/explainer/graphmixer/{TGAT_DATA}.pt",
-                  f"params_torch/enhance/graphmixer/{TGAT_DATA}.pt",
-                  f"results_torch/enhance_graphmixer_{TGAT_DATA}.json"):
+        for f in (f"params_torch/tgnn/graphmixer_{CUT_DATA}.pt",
+                  f"params_torch/explainer/graphmixer/{CUT_DATA}.pt",
+                  f"params_torch/enhance/graphmixer/{CUT_DATA}.pt",
+                  f"results_torch/enhance_graphmixer_{CUT_DATA}.json"):
             if not os.path.exists(f):
                 raise AssertionError(f"the pipeline wrote no {f}")
         say(f"  base test AP {r['base_ap']:.6f}, explainer val score "
@@ -3286,7 +3559,7 @@ def pipeline_phase(work, ds_dir, torch):
             f"{r['enhance_ap']:.6f}; {wall:.2f} s")
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
-            rc = cli.main(["validate", "--data", TGAT_DATA])
+            rc = cli.main(["validate", "--data", CUT_DATA])
         for line in printed.getvalue().splitlines():
             say(f"    | {line}")
         if rc != 0:
@@ -4173,15 +4446,20 @@ def main():
             "1e-4 of the tensor's largest; params after Adam rtol 1e-5, "
             "atol 1e-6; memory rtol 2e-4, atol 1e-5")
         check_train_against_cpu(ds, os.path.join(work, "train"), dev)
+        say(f"[dp] data-parallel TGN training (parallel/): the sharded step "
+            f"from the [train] checkpoint at width 172, batch {BATCH}, "
+            f"{N_DEGREE} neighbours, dropout {DROPOUT}")
+        dp_launches, dp_numbers = dp_phase(ds, os.path.join(work, "train"),
+                                           dev, torch)
         from tempme_tpu_torch.data.events import load_dataset
         t0 = time.perf_counter()
-        write_stream(ds_dir, TGAT_DATA, TGAT_EVENTS)
-        ds30 = load_dataset(TGAT_DATA, ds_dir)
+        write_stream(ds_dir, CUT_DATA, CUT_EVENTS)
+        ds30 = load_dataset(CUT_DATA, ds_dir)
         cut_s = time.perf_counter() - t0
         ckpt_dir = explain_base_dir(work, os.path.join(work, "train",
                                                        "params"))
         say(f"[explain] temp_exp_main.main on the frozen TGN of [train] "
-            f"(load_base, bf16 projections) over the first {TGAT_EVENTS} "
+            f"(load_base, bf16 projections) over the first {CUT_EVENTS} "
             f"events of the stream, ml_{EXPLAIN_DATA} (written in "
             f"{cut_s:.2f} s; train {len(ds30.train)}, val {len(ds30.val)}, "
             f"test {len(ds30.test)} events): one epoch, batch "
@@ -4222,9 +4500,12 @@ def main():
         say(f"[tgat-train] learn_base.main at its default flags (TGAT, 3 "
             f"layers, 2 heads, the deep-TGAT batch {TGAT_BATCH}, dropout "
             f"{DROPOUT}, Adam lr {LR}), {N_DEGREE} neighbours, width 172 "
-            f"(d_k 258), one epoch on ml_{TGAT_DATA}")
+            f"(d_k 258), one epoch on ml_{TGAT_DATA}, the stream's first "
+            f"{TGAT_EVENTS} events")
+        write_stream(ds_dir, TGAT_DATA, TGAT_EVENTS)
+        dst = load_dataset(TGAT_DATA, ds_dir)
         tgat_launches, _, tgat_numbers, tgat_snap = tgat_train(
-            ds30, ds_dir, tgat_out, torch)
+            dst, ds_dir, tgat_out, torch)
         say(f"[tgat-resume] --resume from the state of a run stopped right "
             f"after its --ckpt_every_steps {TGAT_CKPT_STEP} checkpoint, to "
             f"the end of the epoch")
@@ -4238,8 +4519,8 @@ def main():
             f"params after Adam rtol 1e-5, atol 1e-6 where settled, within "
             f"lr elsewhere); the committed uslegis TGAT's contrast at "
             f"float32 and bf16")
-        check_tgat_train_against_cpu(ds30, tgat_out, dev)
-        check_uslegis_tgat(ds30, dev)
+        check_tgat_train_against_cpu(dst, tgat_out, dev)
+        check_uslegis_tgat(dst, dev)
         tgat_ckpt = os.path.join(tgat_out, "params")
         say(f"[tgat-explain] temp_exp_main.main --base_type tgat on the "
             f"frozen TGAT of [tgat-train] (3-hop supports, bf16 "
@@ -4248,7 +4529,7 @@ def main():
             f"heads, dropout {DROPOUT}, Adam lr {LR}, then val and test "
             f"with fidelity and the 16-ratio sweep in 4 chunks of 4")
         tx_launches, tx_numbers, tx_results, tx_snap = explain(
-            ds30, ds_dir, tgat_ckpt, os.path.join(work, "tgat_explain"),
+            dst, ds_dir, tgat_ckpt, os.path.join(work, "tgat_explain"),
             torch, base_type="tgat", data=TGAT_DATA,
             per_step=TGAT_EXPLAIN_PER_STEP,
             resume_step=TGAT_EXPLAIN_RESUME_STEP)
@@ -4266,7 +4547,7 @@ def main():
                           tx_results, base_type="tgat", data=TGAT_DATA)
         say(f"[trace-tgat] torch.profiler over 20 TGAT train steps at batch "
             f"{TGAT_BATCH} (not counted above)")
-        profile_tgat_training(ds30, tgat_out, dev)
+        profile_tgat_training(dst, tgat_out, dev)
         mixer_launches, mx_launches, mixer_numbers, mx_numbers = \
             graphmixer_phases(work, ds_dir, ds30, dev, torch)
         enhance_launches, enhance_numbers = enhance_phases(
@@ -4280,6 +4561,7 @@ def main():
             work, ds_dir, os.path.join(work, "train", "params"), ckpt_dir,
             dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
+    say(f"  dp cell (2 ranks on one card): {json.dumps(dp_numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
     say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
@@ -4291,7 +4573,7 @@ def main():
     say(f"  variants cells: {json.dumps(variant_numbers)}")
     say(f"  tools cells: {json.dumps(tool_numbers)}")
 
-    by_path = {"serve": serve_launches, "train": launches,
+    by_path = {"serve": serve_launches, "train": launches, "dp": dp_launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
                "mixer-explain": mx_launches, **enhance_launches,

@@ -26,7 +26,7 @@ import sys
 
 NOT_PORTED = {
     "scaling-report": "tools/scaling_report.py is not ported yet (ROADMAP "
-                      "item A16)",
+                      "item A16b)",
     "smoke": "the port's smoke run is `python3 chip_smoke.py` from the root "
              "of a checkout, on a machine with a CUDA card",
 }

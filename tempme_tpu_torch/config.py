@@ -1,8 +1,9 @@
 """Configuration for the port's drivers (base training, the explainer).
 
-The port's copy of ``tempme_tpu/config.py`` but its mesh axes
-(``ParallelConfig``, ROADMAP A16): ``DEGREE_DICT``, ``DEFAULT_RATIOS``, the
-data, model, sampler, explainer and train configs, ``Config.for_dataset``,
+The port's copy of ``tempme_tpu/config.py``: ``DEGREE_DICT``,
+``DEFAULT_RATIOS``, the data, model, sampler, explainer, train and parallel
+configs (``ParallelConfig``: the mesh axes; only ``dp`` above 1 runs,
+``parallel/mesh.py``), ``Config.for_dataset``,
 the shared argument groups and ``config_from_args``. The
 batch size is resolved in one place, ``resolve_bs``, which
 ``config_from_args`` calls: an explicit ``--bs`` wins, a batch size below 1
@@ -92,6 +93,21 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh axes (``parallel/mesh.py``): ``dp`` data parallel over the
+    batch; ``sp`` (the support axis) and ``tp`` (the feature axis) wait
+    for their design (ROADMAP A16's sp/tp design), and ``make_mesh``
+    refuses them above 1."""
+    dp: int = 1
+    sp: int = 1
+    tp: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.sp * self.tp
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
@@ -99,6 +115,8 @@ class Config:
     explainer: ExplainerConfig = dataclasses.field(
         default_factory=ExplainerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
     @staticmethod
     def for_dataset(name: str, base_type: str = "tgn",

@@ -432,11 +432,17 @@ class TGN(nn.Module):
     def get_node_emb(self, feats: Features, state: TGNMemoryState,
                      src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
                      sub_bgd, drop=None, explain_weights=None,
-                     update_memory: bool = True, edge_attr=None):
+                     update_memory: bool = True, edge_attr=None,
+                     exchange=None):
         """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
         the embeddings, then (``update_memory``) the positives persisted and
         the batch's messages stored; with ``update_memory=False`` the state
-        comes back as it was (the explainer's frozen base). ``drop``: per
+        comes back as it was (the explainer's frozen base). ``exchange``:
+        None, or a function from this process's batch rows ``(src, tgt,
+        cut_time, eidx, src_emb, tgt_emb)`` (the embeddings detached) to the
+        global batch's, in the global order, applied before the memory is
+        written (the data-parallel step's all-gather,
+        ``parallel/train.py``). ``drop``: per
         side (src, tgt, bgd) one ``AttnDraws`` per layer (training), or
         None (eval). ``explain_weights``: per side a per-hop list of
         [B, width] float32 weights on the support edges' attention
@@ -467,20 +473,26 @@ class TGN(nn.Module):
                                                 (tgt, sub_tgt),
                                                 (bgd, sub_bgd))))
         if update_memory:
+            rows = (src, tgt, cut_time, eidx, src_emb, tgt_emb)
+            if exchange is not None:
+                rows = exchange(src, tgt, cut_time, eidx, src_emb.detach(),
+                                tgt_emb.detach())
+            m_src, m_tgt, m_time, m_eidx, m_src_emb, m_tgt_emb = rows
             state = self._persist_positives(state, upd_memory, upd_last,
-                                            torch.cat([src, tgt]))
-            state = self._store_messages(state, src, tgt, src_emb, tgt_emb,
-                                         cut_time, eidx, feats)
+                                            torch.cat([m_src, m_tgt]))
+            state = self._store_messages(state, m_src, m_tgt, m_src_emb,
+                                         m_tgt_emb, m_time, m_eidx, feats)
         return (src_emb, tgt_emb, bgd_emb), state
 
     def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
                  bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None,
                  explain_weights=None, update_memory: bool = True,
-                 edge_attr=None):
+                 edge_attr=None, exchange=None):
         """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
         (s, t, b), state = self.get_node_emb(
             feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
-            sub_bgd, drop, explain_weights, update_memory, edge_attr)
+            sub_bgd, drop, explain_weights, update_memory, edge_attr,
+            exchange)
         return (self.affinity_score(s, t), self.affinity_score(s, b)), state
 
     forward = contrast

@@ -84,25 +84,44 @@ class TGNTrainStep:
                             for _ in range(3))
         return StepDraws(support, dropout)
 
-    def __call__(self, mem, batch: loops.Batch, draws: StepDraws):
+    def contrast(self, mem, batch: loops.Batch, draws: StepDraws,
+                 exchange=None):
+        """The step's forward: padded rows masked, the support sampled
+        from ``draws``, the training-form contrast. Returns ((pos, neg),
+        new_mem); ``exchange`` as in ``TGN.get_node_emb``."""
         batch = loops.mask_batch_nodes(batch)
         bgd, s_src, s_tgt, s_bgd = sample_tgn_support(
             self.model, self.g, batch, self.dst_table, self.n, draws.support)
-        self.optimizer.zero_grad(set_to_none=True)
-        (pos, neg), new_mem = self.model.contrast(
+        return self.model.contrast(
             self.feats, mem, batch.src, batch.dst, bgd, batch.ts, batch.eidx,
-            s_src, s_tgt, s_bgd, drop=draws.dropout)
+            s_src, s_tgt, s_bgd, drop=draws.dropout, exchange=exchange)
+
+    @staticmethod
+    def loss(pos, neg, mask, count=None):
+        """The masked BCE of the positive and negative logits (``count`` as
+        in ``loops.masked_bce_with_logits``)."""
         ones = torch.ones(pos.shape[0], device=pos.device)
-        loss = (loops.masked_bce_with_logits(pos, ones, batch.mask)
-                + loops.masked_bce_with_logits(neg, ones * 0, batch.mask))
-        loss.backward()
-        self.optimizer.step()
-        # the next step must not reach back into this step's graph
+        return (loops.masked_bce_with_logits(pos, ones, mask, count)
+                + loops.masked_bce_with_logits(neg, ones * 0, mask, count))
+
+    @staticmethod
+    def finish(new_mem, loss, pos, neg):
+        """The step's results: the memory detached (the next step must not
+        reach back into this step's graph) with padding row 0 cleared, and
+        the aux dict."""
         new_mem = loops.scrub_padding_row(
             type(new_mem)(*(x.detach() for x in new_mem)))
         return new_mem, {"loss": loss.detach(),
                          "pos": pos.detach().squeeze(-1),
                          "neg": neg.detach().squeeze(-1)}
+
+    def __call__(self, mem, batch: loops.Batch, draws: StepDraws):
+        self.optimizer.zero_grad(set_to_none=True)
+        (pos, neg), new_mem = self.contrast(mem, batch, draws)
+        loss = self.loss(pos, neg, batch.mask)
+        loss.backward()
+        self.optimizer.step()
+        return self.finish(new_mem, loss, pos, neg)
 
 
 def make_tgn_train_step(model, g_train, feats, dst_table, n,

@@ -125,13 +125,16 @@ class TrainState(NamedTuple):
         self.generator.set_state(blob["generator"])
 
 
-def masked_bce_with_logits(logits, labels, mask):
+def masked_bce_with_logits(logits, labels, mask, count=None):
     """BCE on ``logits`` [B, 1] averaged over the valid rows only (padded
-    final batches)."""
+    final batches). ``count``: the number of valid rows to divide by
+    (default: ``mask``'s); the data-parallel step passes the global
+    batch's, so that each rank's term is its share of the global mean."""
     per = nn.functional.binary_cross_entropy_with_logits(
         logits.squeeze(-1), labels, reduction="none")
     m = mask.to(per.dtype)
-    return (per * m).sum() / m.sum().clamp(min=1.0)
+    n = m.sum() if count is None else count
+    return (per * m).sum() / n.clamp(min=1.0)
 
 
 def mask_batch_nodes(batch: Batch) -> Batch:

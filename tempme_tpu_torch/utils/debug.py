@@ -19,7 +19,7 @@ The JAX module's other two checks have no counterpart here:
 buffers; PyTorch has no buffer donation (its steps update parameters in
 place), so there is nothing to verify. ``count_collectives`` and
 ``assert_collectives`` count the collectives of a sharded step's HLO; they
-wait for the port's distributed path (ROADMAP A16).
+wait for the rest of the port's distributed path (ROADMAP A16b).
 """
 from __future__ import annotations
 
