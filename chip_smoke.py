@@ -41,14 +41,16 @@ script
    each training kernel, the step's wall ms and the collectives' ms and
    bytes (the ranks share one card: not a scaling measurement);
 7. trains the TempME explainer for one epoch on the frozen TGN of step 5
-   through ``temp_exp_main.main`` over the stream's first 30,000 events
-   (``ml_wikishape30k``, the cut of steps 10-13; 169 steps at batch 100,
+   through ``temp_exp_main.main`` over the stream's first 15,000 events
+   (``ml_wikishape15k``, the cut of steps 9-13; 85 steps at batch 100,
    20 neighbours, 60 walks a side, then val and test with fidelity and the
    16-ratio sweep), checks its numbers, files and the launches of all seven kernels
    per step; stops a second run at a mid-epoch checkpoint and resumes it;
    runs ``--eval_only`` on the saved explainer; holds one explainer train
    step and one eval step's ratio sweep on the card against the CPU
-   (float32, same draws); traces 20 explainer train steps;
+   (float32, same draws; every card parameter after Adam against Adam
+   replayed in float64 with the card's own gradient); traces 20 explainer
+   train steps;
 8. holds the kernels against their plain versions at the TGAT paths'
    shapes too (3 layers, d_k 258 and the uslegis TGAT's 173, rows up to
    40,000, ``sample_rows`` at hop 3) and at the sizes that once failed to
@@ -64,10 +66,19 @@ script
    the committed uslegis TGAT (read by the port's own msgpack reader) at
    float32 and bf16; trains the explainer one epoch on the TGAT (3-hop
    supports, the sweep in chunks of 4 ratios), resumes it, runs its
-   ``--eval_only``; traces 20 TGAT train steps;
+   ``--eval_only``; traces 20 TGAT train steps; then [dp-explain]: the
+   explainer's data-parallel step (``parallel/``) from the checkpoints of
+   steps 7 and 9, over nccl at world size 1 in this process bitwise equal
+   to the plain card step (3 TGN-explainer steps, 2 TGAT-explainer steps),
+   then the TGN explainer on 2 gloo ranks sharing this card, 10 global
+   steps of 100 at float32: both ranks bitwise equal, each of the first 2
+   steps held against the 1-process card step from the same state, the
+   launches a rank a step of the 1-process step, the collectives by kind
+   (the committed golden), the step's wall ms and the collectives' ms and
+   bytes;
 10. trains GraphMixer at ``learn_base.main``'s default flags (3 mixer
    blocks, 20 neighbours = tokens, width 172, batch 256) for one epoch on
-   the 30,000-event cut of step 7, and checks the loss, the APs, the files
+   the 15,000-event cut of step 7, and checks the loss, the APs, the files
    (meta ``n_layer`` 3, the block count) and 6 ``sample_rows`` launches
    per step; resumes the state of a run stopped at a mid-epoch
    checkpoint; runs ``--eval_only`` on that
@@ -81,10 +92,14 @@ script
    ``--eval_only`` and holds one explainer train step and one eval step's
    sweep against the CPU; traces 20 GraphMixer and 20 explainer train
    steps;
-11. runs enhance on the same cut for a TGN trained there, the GraphMixer
-   of step 10 (2 epochs, the second resumed from the first's state) and
-   the TGAT of step 9, holds one enhance step of each against the CPU and
-   traces the TGN's;
+11. runs enhance on the same cut for a TGN trained there and the
+   GraphMixer of step 10 (2 epochs, the second resumed from the first's
+   state), and for the TGAT of step 9 on the stream's first 30,000 events
+   (``ml_wikishape30k``), holds one enhance step of each against the CPU
+   and traces the TGN's; then [dp-enhance]: enhance's data-parallel step with
+   a fresh seeded predictor, over nccl at world size 1 bitwise equal to
+   the plain card step (3 steps with that TGN, 2 with the GraphMixer),
+   then with the TGN on 2 gloo ranks sharing this card as in [dp-explain];
 12. builds the offline walk cache of the TGN's cut through ``python -m
    tempme_tpu_torch.cli preprocess`` (train and test, batch 128, 6
    ``sample_rows``, 3 ``sample_union`` and 3 ``sample_masked`` launches a
@@ -123,9 +138,12 @@ script
    and one batch's plotted arrays on the card against the CPU); one
    ``learn_base`` epoch under ``TEMPME_DEBUG=1``; the native host runtime
    built with g++ (``load_csv`` against numpy, the host picks' cuts);
-16. prints its run time against its 1,000 s budget, one JSON line of
-   kernel numbers, the card again, and the last line ``{"ok": true,
-   "device": {...}}``.
+16. prints its run time against its 1,000 s budget (its hard limit is
+   1,200 s; on one NVIDIA H100 80GB HBM3 at 700 W the script took
+   696.2-929.7 s on three hosts, and moves 1.3-1.7x with the host), one
+   JSON line of kernel numbers (each kernel's launches on every path,
+   [dp-explain] and [dp-enhance] among them), the card again, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 The TGN runs its projections in bf16, its default (as in the JAX package);
 the card-against-CPU checks run at float32 with the earlier tolerances,
@@ -922,62 +940,30 @@ def dp_chained(ds, spec, res, dev, torch):
     return dict(dp=dp, cpu=witness, card_s=t1 - t0, cpu_s=t2 - t1)
 
 
-def hold_dp_step(got, want, what):
+def hold_dp_step(got, want, what, start):
     """One dp step's state against the 1-process step's from the same
-    state, batch and draws, float32 on the card: the loss rtol 1e-4;
-    gradients and Adam's first moments rtol 1e-3, atol 1e-4 of the
+    state ``start`` (the dp run's record before the step), batch and
+    draws, float32 on the card, by ``dryrun.hold_step``: the loss rtol
+    1e-4; gradients and Adam's first moments rtol 1e-3, atol 1e-4 of the
     tensor's largest, its second moments rtol 2e-3, atol 2e-4 of the
     largest; the parameters rtol 1e-5, atol 1e-6 where the gradient is at
-    least 1e-4 of its tensor's largest, within lr elsewhere (Adam turns
-    round-off gradients into steps of up to lr); the memory rtol 2e-4,
-    atol 1e-5, its flags exactly. Returns the worst errors. (Steps held
-    in a row, not each from the same state, part further: an unsettled
-    entry of the time encoder's frequencies moves by up to lr, and the
-    wikipedia-shaped stream's time deltas of up to 7e5 s turn that into
-    visible changes of the stored messages' time encodings.)"""
-    import torch
-    la, lb = got["loss"], want["loss"]
-    if not abs(la - lb) <= 1e-4 * abs(lb):
-        raise AssertionError(f"{what}: loss {la}, want {lb}")
-    worst = dict(loss=abs(la - lb) / abs(lb), grad=0.0, param=0.0,
-                 memory=0.0)
-    for i, (name, gb) in enumerate(want["grads"].items()):
-        ga = got["grads"][name]
-        if (ga is None) != (gb is None):
-            raise AssertionError(f"{what}: {name} has a gradient on one "
-                                 f"side only")
-        if gb is None:
-            continue
-        top = max(gb.abs().max().item(), 1e-30)
-        torch.testing.assert_close(ga, gb, rtol=1e-3, atol=1e-4 * top,
-                                   msg=lambda m: f"{name} grad: {m}")
-        worst["grad"] = max(worst["grad"], (ga - gb).abs().max().item() / top)
-        sa, sb = got["opt_state"]["state"][i], want["opt_state"]["state"][i]
-        for key, rtol in (("exp_avg", 1e-3), ("exp_avg_sq", 2e-3)):
-            t = max(sb[key].abs().max().item(), 1e-30)
-            torch.testing.assert_close(sa[key], sb[key], rtol=rtol,
-                                       atol=rtol / 10 * t,
-                                       msg=lambda m: f"{name} {key}: {m}")
-        settled = gb.abs() >= 1e-4 * top
-        pa, pb = got["params"][name], want["params"][name]
-        torch.testing.assert_close(pa[settled], pb[settled], rtol=1e-5,
-                                   atol=1e-6,
-                                   msg=lambda m: f"{name} param: {m}")
-        if settled.any():
-            worst["param"] = max(worst["param"],
-                                 (pa - pb)[settled].abs().max().item())
-        if (pa - pb).abs().max().item() > LR * 1.001:
-            raise AssertionError(f"{what}: {name} differs by more than lr")
-    for name, mb in want["memory"].items():
-        ma = got["memory"][name]
-        if mb.dtype == torch.bool:
-            if not torch.equal(ma, mb):
-                raise AssertionError(f"{what}: memory {name} differs")
-            continue
-        torch.testing.assert_close(ma, mb, rtol=2e-4, atol=1e-5,
-                                   msg=lambda m: f"memory {name}: {m}")
-        worst["memory"] = max(worst["memory"], (ma - mb).abs().max().item())
-    return worst
+    least 1e-4 of its tensor's largest, and every dp parameter to the
+    float64 replay of Adam from ``start`` with the dp step's own gradient
+    at rtol 1e-5, atol 1e-6 (where the gradient is round-off Adam moves an
+    entry by up to lr towards its noisy sign, so no bound in lr holds the
+    two steps' parameters); a parameter without a gradient unchanged; the
+    memory (a TGN's) rtol 2e-4, atol 1e-5, its flags exactly. Returns the
+    worst errors. (Steps held in a row, not each from the same state, part
+    further: an unsettled entry of the time encoder's frequencies moves by
+    up to lr, and the wikipedia-shaped stream's time deltas of up to 7e5 s
+    turn that into visible changes of the stored messages' time
+    encodings.)"""
+    from tempme_tpu_torch.parallel import dryrun
+    return dryrun.hold_step(
+        got, want, start, what, LR, loss_rtol=1e-4, loss_atol=0.0,
+        grad_rtol=1e-3, grad_atol=1e-4, param_rtol=1e-5, param_atol=1e-6,
+        mem_rtol=2e-4, mem_atol=1e-5,
+        moments={"exp_avg": 1e-3, "exp_avg_sq": 2e-3}, exact_zero=())
 
 
 def chain_distance(got, want):
@@ -1010,100 +996,231 @@ def chain_distance(got, want):
 def dp_phase(ds, out, dev, torch):
     """[dp]: (i) the sharded step over nccl at world size 1 in this
     process, bitwise the plain card step over 3 steps (bf16 projections,
-    as ``learn_base`` trains); (ii) 2 ranks spawned on this card over
-    gloo with CUDA tensors, 20 global steps of 256 (128 a rank) at
-    float32: both ranks' states bitwise equal, each of the first 3 steps
-    held against the plain card step from the same state
-    (``hold_dp_step``), the state after those 3 steps in a row against
-    the plain card step's in a row (``dp_chained``), 6 launches a rank a step of ``sample_rows``,
-    ``attend_drop`` and ``attend_bwd``, the median step wall ms and the
-    collectives' ms and bytes a step. Returns (the launches of rank 0
-    over the 20 steps, numbers)."""
-    import statistics
-    import torch.distributed as dist
-    from tempme_tpu_torch.parallel import dryrun, mesh, multihost
+    as ``learn_base`` trains; ``dp_world_one``); (ii) 2 ranks spawned on
+    this card over gloo with CUDA tensors, 20 global steps of 256 (128 a
+    rank) at float32 (``dp_two_ranks``: ranks bitwise equal, each of the
+    first 3 steps held against the plain card step from the same state,
+    6 launches a rank a step of ``sample_rows``, ``attend_drop`` and
+    ``attend_bwd``, the golden's collectives, the step's and the
+    collectives' times), then the state after those 3 steps in a row
+    against the plain card step's in a row (``dp_chained``). Returns (the
+    launches of rank 0 over the 20 steps, numbers)."""
     from tempme_tpu_torch.utils.checkpoint import load_checkpoint
     blob, _ = load_checkpoint(os.path.join(
         out, "params", "tgnn", f"tgn_{DATA_NAME}.pt.train_state"),
         map_location="cpu")
     state = {k: blob[k] for k in ("params", "opt_state", "memory")}
-
     t0 = time.perf_counter()
-    spec = dp_spec(ds, state, DP_CHECKED)
-    plain = dryrun.replay_plain(spec, dev)
+    (launches,), (losses,) = dp_world_one([dp_spec(ds, state, DP_CHECKED)],
+                                          [DP_PER_STEP], dev, torch)
+    say(f"  (i) nccl, world size 1: {DP_CHECKED} steps (bf16, dropout "
+        f"{DROPOUT}) bitwise equal to the plain card step: losses "
+        f"{losses}; launches {launches}; {time.perf_counter() - t0:.2f} s")
+    spec = dp_spec(ds, state, DP_STEPS, compute_dtype=torch.float32)
+    res, numbers = dp_two_ranks(spec, DP_PER_STEP, "tgn", "[dp]", DP_CHECKED,
+                                dev, torch)
+    chained = dp_chained(ds, spec, res, dev, torch)
+    numbers.update({f"chained_{who}_{k}": v for who in ("dp", "cpu")
+                    for k, v in chained[who].items()})
+    say(f"  after {DP_CHECKED} steps in a row, from the 1-process card "
+        f"run: dp {chained['dp']}; the CPU run (the witness) "
+        f"{chained['cpu']}; the card and CPU replays took "
+        f"{chained['card_s']:.2f} and {chained['cpu_s']:.2f} s")
+    return res["launches"], numbers
+
+
+# [dp-explain] and [dp-enhance]: the explainer's and enhance's dp steps
+DP_WALK_STEPS = 10                   # global steps on 2 gloo ranks
+DP_WALK_CHECKED = 2                  # the steps held against 1 process
+
+
+def walk_dp_spec(ds, kind, base_path, steps, seed, compute_dtype=None,
+                 explainer_path=None, null_path=None, record=()):
+    """A dry-run spec of the explainer (``kind`` ``explainer`` or
+    ``tgat-explainer``: the trained explainer of ``explainer_path`` on the
+    frozen base of ``base_path``, the prior of ``null_path``) or of
+    enhance (``kind`` ``enhance``: a fresh seeded predictor and the base of
+    ``base_path`` trained jointly, the degree table of the whole stream) at
+    full width on ``ds``'s train split: ``steps`` global batches of 100
+    (shuffled with ``seed``), dropout 0.1, the draws from each rank's
+    generator (made rank 0's by ``place``)."""
+    import numpy as np
+    from tempme_tpu_torch.data.events import RandEdgeSampler
+    from tempme_tpu_torch.parallel import dryrun
+    from tempme_tpu_torch.tools.node_degrees import compute_node_degrees
+    from tempme_tpu_torch.train import loops
+    from tempme_tpu_torch.utils.checkpoint import load_checkpoint, load_meta
+    base_type = load_meta(base_path)["base_type"]
+    base = dryrun.checkpoint_base(base_path, compute_dtype)
+    batches = loops.stack_batches(ds.train, EXPLAIN_BATCH, True, seed, "cpu")
+    batches = [loops.Batch(*(x[i] for x in batches)) for i in range(steps)]
+    model = dict(node_dim=ds.node_feat.shape[1],
+                 edge_dim=ds.edge_feat.shape[1], dropout=DROPOUT)
+    if kind != "tgat-explainer":
+        model["base_type"] = base_type
+    state = null = None
+    if kind != "enhance":
+        eblob, _ = load_checkpoint(explainer_path, map_location="cpu")
+        state, null = {"params": eblob["params"]}, np.load(null_path)
+    run = dryrun.make_run(model, batches, LR, seed=seed + 1, state=state,
+                          kind=kind, base=base, null=null, record=record)
+    dst = RandEdgeSampler([ds.train.src], [ds.train.dst]).dst_list
+    return dryrun.make_spec(
+        ds.train, ds.full.num_nodes, ds.full.num_edges, ds.node_feat,
+        ds.edge_feat, dst, N_DEGREE, [run],
+        node_degree=compute_node_degrees(ds.full) if kind == "enhance"
+        else None)
+
+
+def dp_world_one(specs, per_step, dev, torch):
+    """Each spec's run through the sharded step over nccl at world size 1
+    in this process, bitwise the plain card step; ``per_step`` its
+    launches a step. Returns rank 0's launches of each."""
+    from tempme_tpu_torch.parallel import dryrun, mesh, multihost
+    import torch.distributed as dist
+    plain = [dryrun.replay_plain(spec, dev) for spec in specs]
     multihost.initialize("nccl", f"tcp://localhost:{dryrun.free_port()}",
                          world_size=1, rank=0, device=dev)
     try:
-        got = dryrun.replay(spec, mesh.make_mesh(), dev)
+        got = [dryrun.replay(spec, mesh.make_mesh(), dev) for spec in specs]
     finally:
         dist.destroy_process_group()
-    dryrun.assert_ranks_equal([plain, got])
-    want = {k: v * DP_CHECKED for k, v in DP_PER_STEP.items()}
-    check_launches(got[0]["launches"], want)
-    say(f"  (i) nccl, world size 1: {DP_CHECKED} steps (bf16, dropout "
-        f"{DROPOUT}) bitwise equal to the plain card step: losses "
-        f"{got[0]['loss']}; launches {got[0]['launches']}; "
-        f"{time.perf_counter() - t0:.2f} s")
+    out = []
+    for spec, want, have, per in zip(specs, plain, got, per_step):
+        dryrun.assert_ranks_equal([want, have])
+        steps = len(spec["runs"][0]["batches"])
+        check_launches(have[0]["launches"],
+                       {k: v * steps for k, v in per.items()})
+        out.append(have[0]["launches"])
+    return out, [g[0]["loss"] for g in got]
 
-    t0 = time.perf_counter()
-    spec = dp_spec(ds, state, DP_STEPS, compute_dtype=torch.float32)
+
+def dp_two_ranks(spec, per_step, golden, what, checked, dev, torch):
+    """``spec``'s run (float32, timed) on 2 gloo ranks spawned on this card:
+    both ranks bitwise equal, ``per_step`` launches a rank a step, the
+    collectives of every step the golden's (``GOLDEN_COLLECTIVES``), and
+    each of the first ``checked`` steps held against the 1-process card
+    step from the same state (``hold_dp_step``). Returns (rank 0's
+    results, numbers)."""
+    import statistics
+    from tempme_tpu_torch.parallel import dryrun
+    from tempme_tpu_torch.parallel.train import GOLDEN_COLLECTIVES
+    steps = len(spec["runs"][0]["batches"])
+    batch = spec["runs"][0]["batches"][0].src.shape[0]
     spec["runs"][0]["timed"] = True
-    with tempfile.TemporaryDirectory(prefix="dp_") as work:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp_walk_") as work:
         ranks = dryrun.run_spec(spec, 2, "gloo", f"cuda:{dev.index or 0}",
-                                work, threads=2, timeout=300)
+                                work, threads=2, timeout=400)
     ranks_s = time.perf_counter() - t0
     dryrun.assert_ranks_equal(ranks)
     for rank in ranks:
         check_launches(rank[0]["launches"],
-                       {k: v * DP_STEPS for k, v in DP_PER_STEP.items()})
+                       {k: v * steps for k, v in per_step.items()})
     res, run = ranks[0][0], spec["runs"][0]
-    refs = [dryrun.make_run(run["model"], [run["batches"][k - 1]], LR,
-                            state=res["states"][k - 1], record=(1,))
-            for k in range(1, DP_CHECKED + 1)]
+    for c in res["comm"]:
+        if c["by_kind"] != GOLDEN_COLLECTIVES[golden]:
+            raise AssertionError(f"{what}: collectives {c['by_kind']}, "
+                                 f"golden {GOLDEN_COLLECTIVES[golden]}")
+    refs = [dict(run, batches=[run["batches"][k - 1]],
+                 state=res["states"][k - 1], record=(1,), timed=False)
+            for k in range(1, checked + 1)]
     plain = dryrun.replay_plain(dict(spec, runs=refs), dev)
     worst = {}
     for k, ref in enumerate(plain, start=1):
-        w = hold_dp_step(dict(res["states"][k], loss=res["loss"][k - 1]),
-                         dict(ref["states"][1], loss=ref["loss"][0]),
-                         f"[dp] step {k}")
+        w = hold_dp_step(dryrun.at_step(res, k), dryrun.at_step(ref, 1),
+                         f"{what} step {k}", res["states"][k - 1])
         worst = {key: max(v, worst.get(key, 0.0)) for key, v in w.items()}
-    chained = dp_chained(ds, spec, res, dev, torch)
     comm = res["comm"]
     numbers = dict(
         step_ms=statistics.median(res["wall_ms"]),
         step_ms_min=min(res["wall_ms"]), step_ms_max=max(res["wall_ms"]),
         collective_ms=statistics.median(c["ms"] for c in comm),
-        collective_bytes=comm[0]["bytes"], collectives=comm[0]["calls"],
-        ranks_s=ranks_s, **{f"worst_{k}": v for k, v in worst.items()},
-        **{f"chained_{who}_{k}": v for who in ("dp", "cpu")
-           for k, v in chained[who].items()})
-    if len({(c["bytes"], c["calls"]) for c in comm}) != 1:
-        raise AssertionError(f"[dp] collectives vary between steps: {comm}")
-    say(f"  (ii) 2 gloo ranks on one card (CUDA tensors), {DP_STEPS} "
-        f"global steps of {BATCH} at float32: ranks bitwise equal; each "
-        f"of the first {DP_CHECKED} against the 1-process card step from "
-        f"the same state, batch and draws: worst loss "
-        f"rtol {worst['loss']:.3e}, gradient {worst['grad']:.3e} of its "
-        f"tensor's largest, settled param {worst['param']:.3e}, memory "
+        collective_bytes=comm[0]["bytes"], collectives=comm[0]["by_kind"],
+        ranks_s=ranks_s, **{f"worst_{k}": v for k, v in worst.items()})
+    say(f"  (ii) 2 gloo ranks on one card (CUDA tensors), {steps} global "
+        f"steps of {batch} at float32: ranks bitwise equal; each of the "
+        f"first {checked} against the 1-process card step from the same "
+        f"state, batch and draws: worst loss rtol "
+        f"{worst['loss']:.3e}, gradient {worst['grad']:.3e} of its tensor's "
+        f"largest, settled param {worst['param']:.3e}, every param within "
+        f"{worst['replay']:.3e} of its Adam replay, memory "
         f"{worst['memory']:.3e}; launches a rank a step "
-        f"{ {k: v // DP_STEPS for k, v in res['launches'].items()} }")
-    say(f"  after {DP_CHECKED} steps in a row, from the 1-process card "
-        f"run: dp {chained['dp']}; the CPU run (the witness) "
-        f"{chained['cpu']}; the card and CPU replays took "
-        f"{chained['card_s']:.2f} and {chained['cpu_s']:.2f} s")
+        f"{ {k: v // steps for k, v in res['launches'].items()} }; "
+        f"collectives a step {comm[0]['by_kind']} (the golden's)")
     say(f"  step {numbers['step_ms']:.3f} ms median wall (min "
         f"{numbers['step_ms_min']:.3f}, max {numbers['step_ms_max']:.3f}, "
         f"with a device sync around each collective), collectives "
         f"{numbers['collective_ms']:.3f} ms and "
-        f"{numbers['collective_bytes']:,} bytes a rank in "
-        f"{numbers['collectives']} calls a step; the 2 ranks took "
-        f"{ranks_s:.2f} s with their start. Both ranks share one card: not "
-        f"a scaling measurement")
-    return res["launches"], numbers
+        f"{numbers['collective_bytes']:,} bytes a rank a step; the 2 ranks "
+        f"took {ranks_s:.2f} s with their start. Both ranks share one card: "
+        f"not a scaling measurement")
+    return res, numbers
+
+
+def dp_explain_phase(ds, ckpt_dir, tgat_ckpt, dev, torch):
+    """[dp-explain]: the explainer's dp step at full width from the
+    checkpoints of [explain] (the TGN explainer) and [tgat-explain]: (i)
+    over nccl at world size 1 in this process, bitwise the plain card step
+    over 3 steps of the TGN explainer and 2 of the TGAT explainer (bf16
+    projections, dropout 0.1, the gamma draws from the generator); (ii)
+    the TGN explainer on 2 gloo ranks sharing this card (``dp_two_ranks``,
+    golden ``explainer``). Returns (launches per path, numbers)."""
+    def spec(base_type, ckpt, data, steps, dtype=None, record=()):
+        kind = "tgat-explainer" if base_type == "tgat" else "explainer"
+        return walk_dp_spec(
+            ds, kind, os.path.join(ckpt, "tgnn", f"{base_type}_{data}.pt"),
+            steps, SEED + 21, dtype,
+            os.path.join(ckpt, "explainer", base_type, f"{data}.pt"),
+            os.path.join(ckpt, f"null_{data}_n{N_DEGREE}_s{SEED}.npy"),
+            record)
+    t0 = time.perf_counter()
+    (tgn_l, tgat_l), losses = dp_world_one(
+        [spec("tgn", ckpt_dir, EXPLAIN_DATA, DP_CHECKED),
+         spec("tgat", tgat_ckpt, TGAT_DATA, 2)],
+        [EXPLAIN_PER_STEP["train"], TGAT_EXPLAIN_PER_STEP["train"]], dev,
+        torch)
+    say(f"  (i) nccl, world size 1: the TGN explainer's {DP_CHECKED} steps "
+        f"and the TGAT explainer's 2 (bf16, dropout {DROPOUT}) bitwise "
+        f"equal to the plain card step: losses {losses[0]}, {losses[1]}; "
+        f"launches {tgn_l}, {tgat_l}; {time.perf_counter() - t0:.2f} s")
+    res, numbers = dp_two_ranks(
+        spec("tgn", ckpt_dir, EXPLAIN_DATA, DP_WALK_STEPS, torch.float32,
+             range(DP_WALK_CHECKED + 1)),
+        EXPLAIN_PER_STEP["train"], "explainer", "[dp-explain]",
+        DP_WALK_CHECKED, dev, torch)
+    return {"dp-explain": res["launches"]}, numbers
+
+
+def dp_enhance_phase(ds_tgn, tgn_base, ds, mixer_base, dev, torch):
+    """[dp-enhance]: enhance's dp step at full width, a fresh seeded
+    predictor with the TGN of [enhance-tgn]'s base (``tgn_base``, on
+    ``ds_tgn``) or the GraphMixer of [mixer-train] (``mixer_base``, on
+    ``ds``): (i) over nccl at world size 1 in this process, bitwise the
+    plain card step over 3 TGN steps and 2 GraphMixer steps (bf16
+    projections, dropout 0.1); (ii) the TGN's on 2 gloo ranks sharing this
+    card (``dp_two_ranks``, golden ``enhance-tgn``). Returns (launches per
+    path, numbers)."""
+    t0 = time.perf_counter()
+    (tgn_l, mixer_l), losses = dp_world_one(
+        [walk_dp_spec(ds_tgn, "enhance", tgn_base, DP_CHECKED, SEED + 23),
+         walk_dp_spec(ds, "enhance", mixer_base, 2, SEED + 24)],
+        [ENHANCE_PER_STEP["tgn"]["train"],
+         ENHANCE_PER_STEP["graphmixer"]["train"]], dev, torch)
+    say(f"  (i) nccl, world size 1: the TGN enhance's {DP_CHECKED} steps and "
+        f"the GraphMixer enhance's 2 (bf16, dropout {DROPOUT}) bitwise equal "
+        f"to the plain card step: losses {losses[0]}, {losses[1]}; launches "
+        f"{tgn_l}, {mixer_l}; {time.perf_counter() - t0:.2f} s")
+    res, numbers = dp_two_ranks(
+        walk_dp_spec(ds_tgn, "enhance", tgn_base, DP_WALK_STEPS, SEED + 23,
+                     torch.float32, record=range(DP_WALK_CHECKED + 1)),
+        ENHANCE_PER_STEP["tgn"]["train"], "enhance-tgn", "[dp-enhance]",
+        DP_WALK_CHECKED, dev, torch)
+    return {"dp-enhance": res["launches"]}, numbers
 
 
 EXPLAIN_BATCH = 100
-EXPLAIN_RESUME_STEP = 100
+EXPLAIN_RESUME_STEP = 50
 
 
 def union_bytes(g, a, b, e, n):
@@ -1553,9 +1670,18 @@ def compare_explainer_train_steps(tc, tg, batch, draws, dev, inputs=None):
     """The explainer train steps ``tc`` (CPU) and ``tg`` (card) on the same
     batch, draws and, when given, cached ``inputs`` (on the CPU): loss rtol
     1e-4; gradients rtol 1e-3, atol 1e-4 of each tensor's largest; params
-    after Adam rtol 1e-5, atol 1e-6 where the gradient is settled, within
-    lr elsewhere (``check_explainer_against_cpu``)."""
+    after Adam rtol 1e-5, atol 1e-6 where the gradient is settled, and
+    every card parameter to the float64 replay of Adam from the shared
+    starting state with the card's own gradient at rtol 1e-5, atol 1e-6
+    (``check_explainer_against_cpu``; a round-off gradient's sign differs
+    between the sides, and Adam moves such an entry by up to lr towards
+    it, so no bound in lr holds the two sides' parameters)."""
     import torch
+    from tempme_tpu_torch.utils.optim import hold_adam_step
+    start = {name: (p.detach().cpu().clone(), copy.deepcopy(
+        {k: v.cpu() if torch.is_tensor(v) else v
+         for k, v in tg.optimizer.state.get(p, {}).items()}))
+        for name, p in tg.explainer.named_parameters()}
     aux_c = tc(batch, draws, inputs)
     aux_g = tg(to_device(batch, dev), to_device(draws, dev),
                to_device(inputs, dev))
@@ -1564,7 +1690,7 @@ def compare_explainer_train_steps(tc, tg, batch, draws, dev, inputs=None):
     if not abs(loss_g - loss_c) <= 1e-4 * abs(loss_c):
         raise AssertionError(f"explainer loss {loss_g} on the card, {loss_c} "
                              f"on the CPU")
-    worst_g, worst_p, unsettled = 0.0, 0.0, 0
+    worst_g, worst_p, worst_r, unsettled, apart = 0.0, 0.0, 0.0, 0, 0.0
     params_c = dict(tc.explainer.named_parameters())
     for name, p in tg.explainer.named_parameters():
         pc = params_c[name]
@@ -1581,9 +1707,10 @@ def compare_explainer_train_steps(tc, tg, batch, draws, dev, inputs=None):
         settled = (g_c.abs() >= 1e-4 * top) & (g_c.abs() >= 1e-5)
         unsettled += int((~settled).sum())
         diff = (p.detach().cpu() - pc.detach()).abs()
-        if diff.max().item() > LR * 1.001:
-            raise AssertionError(f"{name}: params after Adam differ by "
-                                 f"{diff.max().item()}")
+        apart = max(apart, diff.max().item())
+        before, state = start[name]
+        worst_r = max(worst_r, hold_adam_step(p, before, g_g, state, LR,
+                                              f"[card] {name}"))
         torch.testing.assert_close(p.detach().cpu()[settled],
                                    pc.detach()[settled], rtol=1e-5,
                                    atol=1e-6,
@@ -1592,8 +1719,10 @@ def compare_explainer_train_steps(tc, tg, batch, draws, dev, inputs=None):
                       if settled.any() else 0.0)
     say(f"  train step: loss {loss_g:.7f} card, {loss_c:.7f} CPU; worst "
         f"gradient error {worst_g:.3e} of its tensor's largest; worst settled "
-        f"param error after Adam {worst_p:.3e} ({unsettled} round-off-"
-        f"gradient entries held to lr)")
+        f"param error after Adam {worst_p:.3e}; every card param within "
+        f"{worst_r:.3e} of Adam replayed in float64 with the card's own "
+        f"gradient ({unsettled} round-off-gradient entries, the two sides' "
+        f"params at most {apart:.3e} apart)")
 
 
 def check_explainer_against_cpu(ds, ckpt_dir, dev, base_type="tgn",
@@ -1694,18 +1823,19 @@ def profile_explainer(ds, ckpt_dir, dev, n_steps=20, base_type="tgn",
 
 # ---------------------------------------------------------------------------
 # The first CUT_EVENTS events of the wikipedia-shaped stream: the cut of the
-# explainer, GraphMixer, enhance, cache and pipeline phases (a cut of scale,
-# not of width). [explain] explains the TGN of [train] over it (its
-# whole-stream epoch, 911 train and 474 eval steps, left the script no room)
-CUT_EVENTS = 30_000
-CUT_DATA = "wikishape30k"
+# explainer, TGAT, GraphMixer, enhance, cache and pipeline phases (a cut of
+# scale, not of width). [explain] explains the TGN of [train] over it (its
+# whole-stream epoch, 911 train and 474 eval steps, left the script no
+# room); the 30,000-event cut took the script past its time limit on a slow
+# host with the TGAT phases, and left no room for [dp-explain] and
+# [dp-enhance] with the rest
+CUT_EVENTS = 15_000
+CUT_DATA = "wikishape15k"
 EXPLAIN_DATA = CUT_DATA
 # TGAT (3 layers, 2 heads, n_degree 20, width 172: d_k ceil(516 / 2) = 258)
-# on the first TGAT_EVENTS events: its epoch on the 30,000-event cut (528
-# train and 282 eval steps at batch 32, then its explainer) took the script
-# past its time budget on a slower host
-TGAT_EVENTS = 15_000
-TGAT_DATA = "wikishape15k"
+# on the same cut (268 train and 142 eval steps at batch 32)
+TGAT_EVENTS = CUT_EVENTS
+TGAT_DATA = CUT_DATA
 TGAT_BATCH = 32                      # the deep-TGAT batch rule's (not passed)
 TGAT_REF_BATCH = 8                   # the card-vs-CPU train step's batch
 TGAT_CKPT_STEP = 200                 # [tgat-train]'s mid-epoch checkpoint
@@ -2375,8 +2505,8 @@ def check_tgat_kernels(g, torch, dev):
 MIXER_DATA = CUT_DATA
 MIXER_BATCH = 256
 MIXER_REF_BATCH = 64                 # the card-vs-CPU train step's batch
-MIXER_CKPT_STEP = 50                 # [mixer-train]'s mid-epoch checkpoint
-MIXER_EXPLAIN_RESUME_STEP = 100
+MIXER_CKPT_STEP = 20                 # [mixer-train]'s mid-epoch checkpoint
+MIXER_EXPLAIN_RESUME_STEP = 50
 # launches per step: a train or eval step samples 3 sides x 2 hops (the
 # model reads hop 0); GraphMixer runs no attention
 MIXER_PER_STEP = {
@@ -2626,7 +2756,7 @@ def graphmixer_phases(work, ds_dir, dsm, dev, torch):
 
 
 # ---------------------------------------------------------------------------
-# Enhance, the pipeline's third stage, on the 30,000-event cut: a TGN
+# Enhance, the pipeline's third stage, on the 15,000-event cut: a TGN
 # base trained here first, the GraphMixer of [mixer-train], and (walks
 # alone) the TGAT branch with the n_degree of [tgat-train]'s checkpoint
 ENHANCE_DATA = CUT_DATA
@@ -2636,6 +2766,15 @@ ENHANCE_DATA = CUT_DATA
 ENHANCE_TGN_DATA = CUT_DATA + "tgn"
 ENHANCE_BATCH = 100                  # enhance_main's default
 ENHANCE_REF_BATCH = 32               # the card-vs-CPU step's batch
+# the TGAT branch (TempMETGAT on the walks alone) stays on the first
+# 30,000 events: on the 15,000-event cut a third of its reference batch's
+# walks are all padding (1,500 of 5,760), whose identical rows turn the
+# float32 round-off of the softmax's zero query and key gradients, and a
+# ReLU tie in the event encoder's feed-forward, into 2.3e-4 to 2.5e-3 of
+# a tensor's largest gradient between the card and the CPU (both as far
+# from a float64 step; ROADMAP C11)
+ENHANCE_TGAT_EVENTS = 30_000
+ENHANCE_TGAT_DATA = "wikishape30k"
 # launches per step: every base samples 3 sides x 2 hops and each side's
 # walk events 2 and 3; a TGN embeds 3 sides x 2 layers (the training form
 # and its backward in a train step, the eval form in an eval step); no
@@ -3085,7 +3224,7 @@ def profile_enhance(ds, ckpt_dir, dev, n_steps=20):
 
 
 def enhance_tgn_base_argv(ds_dir, out, *extra):
-    """``learn_base --base_type tgn`` on the 30,000-event cut, at the TGN
+    """``learn_base --base_type tgn`` on the 15,000-event cut, at the TGN
     cells' flags (batch 256, 20 neighbours, dropout 0.1, Adam lr 1e-3),
     one epoch."""
     return ["--data", ENHANCE_TGN_DATA, "--data_dir", ds_dir,
@@ -3139,13 +3278,17 @@ def enhance_phases(work, ds_dir, ds30, dev, torch):
     enhance_resume(ds_dir, mixer_ckpt, snap,
                    os.path.join(work, "enhance_mixer_resume"), "graphmixer")
     say(f"  resumed and finished in {time.perf_counter() - t0:.2f} s")
-    say("[enhance-tgat] enhance_main --base_type tgat (TempMETGAT on the "
-        "walks alone, 8 heads, walk_enc_cat at width 52; n_degree from "
-        "[tgat-train]'s checkpoint meta): one epoch, then test")
+    write_stream(ds_dir, ENHANCE_TGAT_DATA, ENHANCE_TGAT_EVENTS)
+    ds_tgat = load_dataset(ENHANCE_TGAT_DATA, ds_dir)
+    say(f"[enhance-tgat] enhance_main --base_type tgat (TempMETGAT on the "
+        f"walks alone, 8 heads, walk_enc_cat at width 52; n_degree from "
+        f"[tgat-train]'s checkpoint meta) on the stream's first "
+        f"{ENHANCE_TGAT_EVENTS} events (ml_{ENHANCE_TGAT_DATA}): one epoch, "
+        f"then test")
     launches["enhance-tgat"], numbers["enhance-tgat"], tgat_ckpt, _ = \
-        enhance(ds30, ds_dir, os.path.join(work, "tgat", "params"),
+        enhance(ds_tgat, ds_dir, os.path.join(work, "tgat", "params"),
                 os.path.join(work, "enhance_tgat"), torch, "tgat",
-                base_data=TGAT_DATA)
+                ENHANCE_TGAT_DATA, base_data=TGAT_DATA)
     say(f"[enhance-reference] one enhance train step (batch "
         f"{ENHANCE_REF_BATCH}, dropout {DROPOUT}, the same draws) of each "
         f"base on the card against the CPU from the state its run wrote, at "
@@ -3159,7 +3302,8 @@ def enhance_phases(work, ds_dir, ds30, dev, torch):
     check_enhance_against_cpu(ds_tgn, tgn_ckpt, dev, "tgn", 1e-4,
                               ENHANCE_TGN_DATA)
     check_enhance_against_cpu(ds30, mixer_ckpt, dev, "graphmixer", 5e-4)
-    check_enhance_against_cpu(ds30, tgat_ckpt, dev, "tgat", 1e-4)
+    check_enhance_against_cpu(ds_tgat, tgat_ckpt, dev, "tgat", 1e-4,
+                              ENHANCE_TGAT_DATA)
     check_uslegis_enhance(ds30, dev)
     say(f"[trace-enhance] torch.profiler over 20 TGN enhance train steps at "
         f"batch {ENHANCE_BATCH} (not counted above)")
@@ -4548,10 +4692,26 @@ def main():
         say(f"[trace-tgat] torch.profiler over 20 TGAT train steps at batch "
             f"{TGAT_BATCH} (not counted above)")
         profile_tgat_training(dst, tgat_out, dev)
+        say(f"[dp-explain] the explainer's data-parallel step (parallel/) "
+            f"from the checkpoints of [explain] and [tgat-explain] at width "
+            f"172, batch {EXPLAIN_BATCH}, {N_DEGREE} neighbours, dropout "
+            f"{DROPOUT}")
+        dpx_launches, dpx_numbers = dp_explain_phase(ds30, ckpt_dir,
+                                                     tgat_ckpt, dev, torch)
         mixer_launches, mx_launches, mixer_numbers, mx_numbers = \
             graphmixer_phases(work, ds_dir, ds30, dev, torch)
         enhance_launches, enhance_numbers = enhance_phases(
             work, ds_dir, ds30, dev, torch)
+        say(f"[dp-enhance] enhance's data-parallel step (parallel/) with "
+            f"the TGN of [enhance-tgn]'s base and the GraphMixer of "
+            f"[mixer-train], a fresh seeded predictor, width 172, batch "
+            f"{ENHANCE_BATCH}, {N_DEGREE} neighbours, dropout {DROPOUT}")
+        dph_launches, dph_numbers = dp_enhance_phase(
+            load_dataset(ENHANCE_TGN_DATA, ds_dir), os.path.join(
+                work, "enhance_tgn_base", "params", "tgnn",
+                f"tgn_{ENHANCE_TGN_DATA}.pt"), ds30,
+            os.path.join(work, "mixer", "params", "tgnn",
+                         f"graphmixer_{MIXER_DATA}.pt"), dev, torch)
         cache_launches, cache_numbers = cache_phases(
             work, ds_dir, dev, torch, explain_numbers["train_ms_per_step"])
         pipeline_numbers = pipeline_phase(work, ds_dir, torch)
@@ -4562,6 +4722,10 @@ def main():
             dev, torch)
     say(f"  training cell: {json.dumps(numbers)}")
     say(f"  dp cell (2 ranks on one card): {json.dumps(dp_numbers)}")
+    say(f"  dp-explain cell (2 ranks on one card): "
+        f"{json.dumps(dpx_numbers)}")
+    say(f"  dp-enhance cell (2 ranks on one card): "
+        f"{json.dumps(dph_numbers)}")
     say(f"  explainer cell: {json.dumps(explain_numbers)}")
     say(f"  TGAT training cell: {json.dumps(tgat_numbers)}")
     say(f"  TGAT explainer cell: {json.dumps(tx_numbers)}")
@@ -4574,6 +4738,7 @@ def main():
     say(f"  tools cells: {json.dumps(tool_numbers)}")
 
     by_path = {"serve": serve_launches, "train": launches, "dp": dp_launches,
+               **dpx_launches, **dph_launches,
                "explain": explain_launches, "tgat-train": tgat_launches,
                "tgat-explain": tx_launches, "mixer-train": mixer_launches,
                "mixer-explain": mx_launches, **enhance_launches,

@@ -13,20 +13,19 @@
     python -m tempme_tpu_torch.cli validate    --data wikipedia
     python -m tempme_tpu_torch.cli supervise   --stall_timeout 600 -- python -m ...
     python -m tempme_tpu_torch.cli profile     --data wikipedia
+    python -m tempme_tpu_torch.cli scaling-report --max_world 8
 
 The data directory is ``--data_dir`` or ``TEMPME_DATA_DIR``. Each command
 runs on the CUDA device; a Python caller may pass ``device="cpu"`` to
-``main``. Port of ``tempme_tpu/cli.py``; ``scaling-report`` is not ported
-yet and exits non-zero naming its ROADMAP item, and ``smoke`` is
-``python3 chip_smoke.py``.
+``main`` (``scaling-report`` runs gloo ranks on the CPU). Port of
+``tempme_tpu/cli.py``; ``smoke`` is ``python3 chip_smoke.py``, and the
+command exits non-zero saying so.
 """
 from __future__ import annotations
 
 import sys
 
 NOT_PORTED = {
-    "scaling-report": "tools/scaling_report.py is not ported yet (ROADMAP "
-                      "item A16b)",
     "smoke": "the port's smoke run is `python3 chip_smoke.py` from the root "
              "of a checkout, on a machine with a CUDA card",
 }
@@ -74,6 +73,9 @@ def main(argv=None, device=None):
     if cmd == "profile":
         from .tools.profile_step import main as m
         return m(rest, device=device)
+    if cmd == "scaling-report":      # gloo ranks on the CPU
+        from .tools.scaling_report import main as m
+        return m(rest)
     if cmd in NOT_PORTED:
         print(f"{cmd}: {NOT_PORTED[cmd]}", file=sys.stderr)
         return 1

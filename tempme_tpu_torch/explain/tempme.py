@@ -22,6 +22,15 @@ Every parameter exists from construction on (flax creates them in
 ``init_all`` by running each path once). Layers start from the JAX
 package's initialisers, on the CPU from ``seed``, then move to ``device``.
 
+Four statistics are taken over the whole batch, not per row: the motif
+attention's ``std`` of the walks' time deltas, and
+``compute_walk_importance``'s ``std`` of the recency deltas and mean and
+``std`` of the walks' average degrees. Each reads the data only (times,
+cut times, ids, degrees). A ``stats`` argument (``LOCAL_STATS`` by
+default: the batch's own) supplies them, so that a data-parallel step
+(``parallel/train.py``) can give every rank the global batch's;
+``stat_inputs`` lists what each side's statistics are taken over.
+
 Random numbers enter as tensors, as in the TGN: the dropout uniforms of
 each site (``ImpDraws`` for the walk importance, ``EdgeDraws`` for the
 dependency gate, ``EnhanceDraws`` for the enhance form's motif attention;
@@ -29,7 +38,11 @@ a site keeps where ``u >= rate`` and scales by
 ``1 / (1 - rate)``) and the Beta sample's two gamma draws. The gamma draws
 are taken from a generator, or passed in; either way their gradient with
 respect to the shape is the implicit-reparameterisation derivative
-``torch._standard_gamma_grad``, the one ``jax.random.gamma`` has.
+``torch._standard_gamma_grad``, the one ``jax.random.gamma`` has. A
+third form, a function of every side's edge probabilities that returns per
+side the draws, lets the data-parallel step draw them on the global
+batch's shapes (the draws of a generator depend on the values of the
+shapes, so a rank cannot draw its own rows alone).
 
 Walk layout follows ``ops/sampler.py::Walks`` (newest event first), so slot
 2 is the oldest event, the walk's query in the motif attention.
@@ -108,19 +121,30 @@ class _Gamma(torch.autograd.Function):
         return grad * torch._standard_gamma_grad(alpha, g), None
 
 
+def beta_shapes(prob):
+    """The Beta sample's shapes: alpha = max(10 p, 1), beta = max(10 (1 -
+    p), 1)."""
+    return (torch.clamp(prob * 10.0, min=1.0),
+            torch.clamp((1.0 - prob) * 10.0, min=1.0))
+
+
+def draw_gamma(alpha, beta, generator: torch.Generator):
+    """The gamma draws (ga, gb) at the shapes ``alpha``, ``beta`` from
+    ``generator``, in that order."""
+    return (torch._standard_gamma(alpha.detach(), generator=generator),
+            torch._standard_gamma(beta.detach(), generator=generator))
+
+
 def beta_sample(prob, training: bool, gamma=None):
-    """Beta-reparameterised importance: alpha = max(10 p, 1), beta =
-    max(10 (1 - p), 1); in training ga / (ga + gb + 1e-12) with ga ~
-    Gamma(alpha), gb ~ Gamma(beta), in eval the mean alpha / (alpha + beta).
-    ``gamma``: the draws (ga, gb), or a ``torch.Generator`` to take them
-    from."""
-    alpha = torch.clamp(prob * 10.0, min=1.0)
-    beta = torch.clamp((1.0 - prob) * 10.0, min=1.0)
+    """Beta-reparameterised importance (``beta_shapes``): in training ga /
+    (ga + gb + 1e-12) with ga ~ Gamma(alpha), gb ~ Gamma(beta), in eval the
+    mean alpha / (alpha + beta). ``gamma``: the draws (ga, gb), or a
+    ``torch.Generator`` to take them from."""
+    alpha, beta = beta_shapes(prob)
     if not training:
         return alpha / (alpha + beta)
     if isinstance(gamma, torch.Generator):
-        gamma = (torch._standard_gamma(alpha.detach(), generator=gamma),
-                 torch._standard_gamma(beta.detach(), generator=gamma))
+        gamma = draw_gamma(alpha, beta, gamma)
     ga = _Gamma.apply(alpha, gamma[0])
     gb = _Gamma.apply(beta, gamma[1])
     return ga / (ga + gb + 1e-12)
@@ -143,20 +167,98 @@ def kl_sparsity_loss(prob, cat, null_dist, target: float = 0.3,
     return kl.mean()
 
 
-def compute_walk_importance(time_idx, node_idx, cut_time, node_degree=None):
-    """Soft walk weights: 0.5 recency + 0.5 degree sigmoid, normalised to
-    mean 1 over the walks. ``node_degree`` [N], or None for a degree of 1
-    at every node."""
-    w = time_idx.shape[1]
-    delta = (cut_time[:, None] - time_idx.amax(dim=-1)).abs()
-    recency = torch.exp(-delta / (delta.std() + 1e-6))
+class LocalStats:
+    """The batch statistics of the tensors the forward holds (``std`` with
+    Bessel's correction, as the JAX package's ``ddof=1``): the 1-process
+    default. ``name`` says which statistic is asked for (``stat_inputs``);
+    the data-parallel step's counterpart answers with the global batch's."""
+
+    @staticmethod
+    def std(name: str, x):
+        return x.std()
+
+    @staticmethod
+    def mean(name: str, x):
+        return x.mean()
+
+
+LOCAL_STATS = LocalStats()
+
+
+def motif_delta(time_idx, cut_time):
+    """[B, W, 2]: the motif attention's time deltas of each walk's two
+    newer events."""
+    return (cut_time[:, None, None] - time_idx[:, :, :2]).abs()
+
+
+def walk_delta(time_idx, cut_time):
+    """[B, W]: each walk's recency, from its newest event."""
+    return (cut_time[:, None] - time_idx.amax(dim=-1)).abs()
+
+
+def walk_degree(node_idx, node_degree=None):
+    """[B, W]: the mean degree of each walk's nodes (padding left out),
+    ``node_degree`` [N], or None for a degree of 1 at every node."""
     valid = node_idx > 0
     degs = valid.float() if node_degree is None else \
         torch.where(valid, node_degree[node_idx.long()], 0.0)
-    avg_deg = degs.sum(-1) / (valid.sum(-1).float() + 1e-6)
-    deg_w = torch.sigmoid((avg_deg - avg_deg.mean()) / (avg_deg.std() + 1e-6))
+    return degs.sum(-1) / (valid.sum(-1).float() + 1e-6)
+
+
+def compute_walk_importance(time_idx, node_idx, cut_time, node_degree=None,
+                            stats=LOCAL_STATS):
+    """Soft walk weights: 0.5 recency + 0.5 degree sigmoid, normalised to
+    mean 1 over the walks. ``node_degree`` [N], or None for a degree of 1
+    at every node; ``stats`` the batch statistics (``walk_delta``,
+    ``walk_degree``)."""
+    w = time_idx.shape[1]
+    delta = walk_delta(time_idx, cut_time)
+    recency = torch.exp(-delta / (stats.std("walk_delta", delta) + 1e-6))
+    avg_deg = walk_degree(node_idx, node_degree)
+    deg_w = torch.sigmoid((avg_deg - stats.mean("walk_degree", avg_deg))
+                          / (stats.std("walk_degree", avg_deg) + 1e-6))
     imp = 0.5 * recency + 0.5 * deg_w
     return imp / (imp.sum(-1, keepdim=True) / w + 1e-6)
+
+
+def stat_inputs(walks: WalkInputs, cut_time, node_degree=None,
+                motif: bool = True, walk_weights: bool = False) -> dict:
+    """``{name: tensor}``: what one side's batch statistics are taken over,
+    from the data alone: the motif attention's deltas (``motif``), and
+    with ``walk_weights`` (the enhance form) the recency deltas and the
+    walks' degrees."""
+    out = {}
+    if motif:
+        out["motif_delta"] = motif_delta(walks.ts, cut_time)
+    if walk_weights:
+        out["walk_delta"] = walk_delta(walks.ts, cut_time)
+        out["walk_degree"] = walk_degree(walks.nodes, node_degree)
+    return out
+
+
+def sample_edges(probs, sub: Subgraph, training: bool, gamma, hops):
+    """Per hop of ``hops`` the Beta sample of ``probs`` (``gamma``: a
+    generator, or the draws (ga0, gb0, ga1, gb1) indexed by hop), 0 where
+    the support is padding."""
+    imps = []
+    for hop, prob in zip(hops, probs):
+        g = gamma if isinstance(gamma, torch.Generator) or gamma is None \
+            else gamma[2 * hop:2 * hop + 2]
+        imp = beta_sample(prob, training, g)
+        imps.append(torch.where(sub.nodes[hop] == 0, 0.0, imp))
+    return tuple(imps)
+
+
+def side_gammas(gamma, probs, training: bool):
+    """Per side the ``gamma`` of ``sample_edges``: the generator or None
+    for every side, the given per-side draws, or (training, ``gamma`` a
+    function) what ``gamma(probs)`` returns for the sides' per-hop
+    probabilities ``probs``."""
+    if callable(gamma) and not isinstance(gamma, torch.Generator):
+        return gamma(probs) if training else [None] * len(probs)
+    if gamma is None or isinstance(gamma, torch.Generator):
+        return [gamma] * len(probs)
+    return gamma
 
 
 class EventGCN(nn.Module):
@@ -191,14 +293,15 @@ class TemporalAwareMotifAttention(nn.Module):
         self.fc2 = dense(hid_dim, hid_dim)
 
     def forward(self, x, time_idx=None, cut_time=None,
-                draws: Optional[ImpDraws] = None):
+                draws: Optional[ImpDraws] = None, stats=LOCAL_STATS):
         """x [B, W, 3, D] -> [B, W, hid]."""
         src, tgt = x[:, :, 2:3, :], x[:, :, 0:2, :]
         wp, wq = self.W1(src), self.W2(tgt)
         scores = torch.einsum("bwqd,bwkd->bwqk", wp, wq)      # [B, W, 1, 2]
         if self.temporal and time_idx is not None and cut_time is not None:
-            delta = (cut_time[:, None, None] - time_idx[:, :, :2]).abs()
-            tw = torch.exp(-delta / (delta.std() + 1e-6))
+            delta = motif_delta(time_idx, cut_time)
+            tw = torch.exp(-delta / (stats.std("motif_delta", delta)
+                                     + 1e-6))
             tb = self.temporal_bias
             scores = scores * (1.0 - tb + tb * tw[:, :, None, :])
         alpha = torch.softmax(scores, dim=-1)
@@ -271,21 +374,29 @@ class TempME(nn.Module):
         return (event, gather_rows(feats.node, walks.nodes[..., 0::2]),
                 gather_rows(feats.node, walks.nodes[..., 1::2]))
 
-    def _motif_hidden(self, feats, walks, cut_time, draws):
+    def _motif_hidden(self, feats, walks, cut_time, draws, stats):
         event, src_feat, tgt_feat = self._walk_features(feats, walks)
         updated = torch.cat([self.event_conv(event, src_feat, tgt_feat),
                              self.event_conv(event, tgt_feat, src_feat)],
                             dim=-1)
-        return self.attention(updated, walks.ts, cut_time, draws)
+        return self.attention(updated, walks.ts, cut_time, draws, stats)
+
+    def stat_inputs(self, walks: WalkInputs, cut_time, node_degree=None,
+                    enhance: bool = False) -> dict:
+        """One side's batch statistics' inputs (``stat_inputs``): the
+        motif attention's (with temporal guidance), and in the enhance
+        form the walk weights'."""
+        return stat_inputs(walks, cut_time, node_degree,
+                           self.attention.temporal, enhance)
 
     def _cat_onehot(self, cat, dtype):
         return nn.functional.one_hot(cat.long(), 12).to(dtype)
 
     def forward(self, feats: Features, walks: WalkInputs, cut_time,
-                draws: Optional[ImpDraws] = None):
+                draws: Optional[ImpDraws] = None, stats=LOCAL_STATS):
         """Walk importance [B, W, 1]; ``draws`` for training, None for
-        eval."""
-        h = self._motif_hidden(feats, walks, cut_time, draws)
+        eval; ``stats`` the batch statistics."""
+        h = self._motif_hidden(feats, walks, cut_time, draws, stats)
         if self.if_cat:
             h = torch.cat([h, self._cat_onehot(walks.cat, h.dtype)], dim=-1)
         out = torch.relu(self.head_d1(h))
@@ -303,6 +414,15 @@ class TempME(nn.Module):
         [B, n * n]) for a TGN, (imp0,) for a GraphMixer, 0 on padding.
         ``gamma``: the Beta sample's draws (ga0, gb0, ga1, gb1; a
         GraphMixer reads the first two) or a generator (training only)."""
+        hops = self.hops if hops is None else hops
+        probs = self.edge_probs(feats, sub, graphlet_imp, walks, draws, hops)
+        return sample_edges(probs, sub, training, gamma, hops)
+
+    def edge_probs(self, feats: Features, sub: Subgraph, graphlet_imp,
+                   walks: WalkInputs, draws: Optional[EdgeDraws] = None,
+                   hops=None):
+        """Per explained hop the walk -> edge max of the (gated) walk
+        importance [B, width]: the Beta sample's probabilities."""
         b, w, _ = walks.eids.shape
         edge_walk = walks.eids.reshape(b, w * 3)
         walk_imp = graphlet_imp.expand(b, w, 3).reshape(b, w * 3)
@@ -318,25 +438,22 @@ class TempME(nn.Module):
                 x = _dropout(x, draws.dep2, self.dropout)
             gate = torch.sigmoid(self.dep_d3(x).squeeze(-1))
             walk_imp = walk_imp * (0.5 + 0.5 * gate)
-        imps = []
-        for hop in self.hops if hops is None else hops:
-            imp = walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
-            g = gamma if isinstance(gamma, torch.Generator) or gamma is None \
-                else gamma[2 * hop:2 * hop + 2]
-            imp = beta_sample(imp, training, g)
-            imps.append(torch.where(sub.nodes[hop] == 0, 0.0, imp))
-        return tuple(imps)
+        return [walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
+                for hop in (self.hops if hops is None else hops)]
 
     def retrieve_explanation(self, feats: Features, subs, imps, walks,
                              training: bool = True, draws=None, gamma=None):
         """Per explained hop the stacked [3B, width] edge importances of the
-        three sides (src, tgt, bgd). ``draws`` and ``gamma``: per side, or
-        None; ``gamma`` may also be one generator for all sides."""
-        per_side = [self.edge_importance(
-            feats, subs[i], imps[i], walks[i], training,
-            None if draws is None else draws[i],
-            gamma if gamma is None or isinstance(gamma, torch.Generator)
-            else gamma[i]) for i in range(3)]
+        three sides (src, tgt, bgd). ``draws``: per side, or None;
+        ``gamma``: per side the draws, one generator for all sides, or a
+        function from the sides' per-hop probabilities to per side the
+        draws (``side_gammas``), or None."""
+        probs = [self.edge_probs(feats, subs[i], imps[i], walks[i],
+                                 None if draws is None else draws[i])
+                 for i in range(3)]
+        per_side = [sample_edges(p, subs[i], training, g, self.hops)
+                    for i, (p, g) in enumerate(zip(
+                        probs, side_gammas(gamma, probs, training)))]
         return [torch.cat([s[h] for s in per_side], dim=0)
                 for h in range(len(self.hops))]
 
@@ -348,15 +465,16 @@ class TempME(nn.Module):
 
     def walk_embedding(self, feats: Features, walks: WalkInputs, cut_time,
                        node_degree=None,
-                       draws: Optional[EnhanceDraws] = None):
+                       draws: Optional[EnhanceDraws] = None,
+                       stats=LOCAL_STATS):
         """[B, hid (+ 12)]: the motif hiddens summed over the walks, each
         weighted by its importance, beside the summed one-hot motif
         classes. ``node_degree`` [N] (ones when None) weighs the walks'
         nodes; ``draws`` the motif attention's dropout (training) or
-        None."""
-        h = self._motif_hidden(feats, walks, cut_time, draws)
+        None; ``stats`` the batch statistics."""
+        h = self._motif_hidden(feats, walks, cut_time, draws, stats)
         ww = compute_walk_importance(walks.ts, walks.nodes, cut_time,
-                                     node_degree)
+                                     node_degree, stats)
         h = (h * ww[..., None]).sum(dim=1)
         if self.if_cat:
             h = torch.cat([h, self._cat_onehot(walks.cat, h.dtype).sum(1)],
@@ -369,16 +487,18 @@ class TempME(nn.Module):
 
     def enhance_predict_agg(self, feats: Features, cut_time, walks_src,
                             walks_tgt, walks_bgd, src_gat, tgt_gat, bgd_gat,
-                            node_degree=None, draws=None):
+                            node_degree=None, draws=None, stats=None):
         """(pos [B, 1], neg [B, 1]) logits of the pairs (src, tgt) and
         (src, bgd) from each side's walk embedding beside the base's node
         embedding of the side (``*_gat`` [B, node_dim]). ``draws``: per
-        side an ``EnhanceDraws`` (training), or None."""
+        side an ``EnhanceDraws`` (training), or None; ``stats``: per side
+        the batch statistics, or None (each side's own)."""
         d = draws or (None, None, None)
+        st = stats or (LOCAL_STATS,) * 3
         src, tgt, bgd = (
             torch.cat([self.walk_embedding(feats, w, cut_time, node_degree,
-                                           u), gat], dim=-1)
-            for w, gat, u in ((walks_src, src_gat, d[0]),
-                              (walks_tgt, tgt_gat, d[1]),
-                              (walks_bgd, bgd_gat, d[2])))
+                                           u, s), gat], dim=-1)
+            for w, gat, u, s in ((walks_src, src_gat, d[0], st[0]),
+                                 (walks_tgt, tgt_gat, d[1], st[1]),
+                                 (walks_bgd, bgd_gat, d[2], st[2])))
         return self._affinity(src, tgt), self._affinity(src, bgd)

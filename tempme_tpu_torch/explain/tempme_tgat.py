@@ -48,7 +48,8 @@ from ..ops.layers import dense
 from ..ops.sampler import Subgraph
 from ..ops.segment import walk_to_edge_max
 from ..utils.devices import resolve_device
-from .tempme import WalkInputs, beta_sample, compute_walk_importance
+from .tempme import (LOCAL_STATS, WalkInputs, compute_walk_importance,
+                     sample_edges, side_gammas, stat_inputs)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -241,28 +242,39 @@ class TempMETGAT(nn.Module):
         and hop-1 support edges, 0 on padding: the walk -> edge max, then
         in training the Beta sample (``gamma``: a generator, or the draws
         (ga0, gb0, ga1, gb1)); in eval the max itself."""
+        return self.sample_edges(self.edge_probs(sub, graphlet_imp, walks),
+                                 sub, training, gamma)
+
+    @staticmethod
+    def edge_probs(sub: Subgraph, graphlet_imp, walks: WalkInputs):
+        """Per hop (0, 1) the walk -> edge max of the walk importance
+        [B, width]: the Beta sample's probabilities."""
         b, w, _ = walks.eids.shape
         edge_walk = walks.eids.reshape(b, w * 3)
         walk_imp = graphlet_imp.expand(b, w, 3).reshape(b, w * 3)
-        imps = []
-        for hop in (0, 1):
-            imp = walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
-            if training:
-                g = gamma if isinstance(gamma, torch.Generator) \
-                    else gamma[2 * hop:2 * hop + 2]
-                imp = beta_sample(imp, True, g)
-            imps.append(torch.where(sub.nodes[hop] == 0, 0.0, imp))
-        return tuple(imps)
+        return [walk_to_edge_max(edge_walk, walk_imp, sub.eids[hop])
+                for hop in (0, 1)]
+
+    @staticmethod
+    def sample_edges(probs, sub: Subgraph, training: bool, gamma):
+        """In training the Beta sample of ``probs``, in eval the
+        probabilities themselves; 0 where the support is padding."""
+        if training:
+            return sample_edges(probs, sub, True, gamma, (0, 1))
+        return tuple(torch.where(sub.nodes[hop] == 0, 0.0, p)
+                     for hop, p in enumerate(probs))
 
     def retrieve_explanation(self, feats: Features, subs, imps, walks,
                              training: bool = True, gamma=None):
         """Per hop the stacked [3B, width] edge importances of the three
-        sides (src, tgt, bgd); ``gamma`` one generator, or per side the
-        draws (training only)."""
-        per_side = [self.edge_importance(
-            feats, subs[i], imps[i], walks[i], training,
-            gamma if gamma is None or isinstance(gamma, torch.Generator)
-            else gamma[i]) for i in range(3)]
+        sides (src, tgt, bgd); ``gamma`` one generator, per side the draws,
+        or a function from the sides' per-hop probabilities to per side
+        the draws (training only)."""
+        probs = [self.edge_probs(subs[i], imps[i], walks[i])
+                 for i in range(3)]
+        per_side = [self.sample_edges(p, subs[i], training, g)
+                    for i, (p, g) in enumerate(zip(
+                        probs, side_gammas(gamma, probs, training)))]
         return [torch.cat([s[h] for s in per_side], dim=0) for h in (0, 1)]
 
     # -- enhance form ------------------------------------------------
@@ -272,13 +284,22 @@ class TempMETGAT(nn.Module):
         return self.draw_shapes(b, w)[:6] + (
             (1, 1, w, w), (b, w, cat), (b, w, 32 * self.out_dim), (b, w, cat))
 
+    def stat_inputs(self, walks: WalkInputs, cut_time, node_degree=None,
+                    enhance: bool = False) -> dict:
+        """One side's batch statistics' inputs (``stat_inputs``): none in
+        the explainer form (its walk encoding reads no batch statistic),
+        the walk weights' in the enhance form."""
+        return stat_inputs(walks, cut_time, node_degree, False, enhance)
+
     def walk_embedding(self, feats: Features, walks: WalkInputs, cut_time,
                        node_degree=None,
-                       draws: Optional[TGATEnhanceDraws] = None):
+                       draws: Optional[TGATEnhanceDraws] = None,
+                       stats=LOCAL_STATS):
         """[B, W, out + 12]: each walk's encoding beside its one-hot motif
         class, attended across the walks by ``walk_enc_cat``, times the
         walk's importance (``node_degree`` [N], ones when None). ``draws``
-        the dropout uniforms (training) or None."""
+        the dropout uniforms (training) or None; ``stats`` the batch
+        statistics."""
         u = _NO_ENHANCE_DRAWS if draws is None else draws
         g = self.attention_encode(self._combined_features(feats, walks), u)
         g = torch.cat([g, nn.functional.one_hot(walks.cat.long(), 12)
@@ -287,7 +308,7 @@ class TempMETGAT(nn.Module):
             g = self.walk_enc_cat(g, (u.cat_attn, u.cat_res1, u.cat_ff,
                                       u.cat_res2))
         ww = compute_walk_importance(walks.ts, walks.nodes, cut_time,
-                                     node_degree)
+                                     node_degree, stats)
         return g * ww[..., None]
 
     def _affinity(self, x1, x2):
@@ -298,13 +319,16 @@ class TempMETGAT(nn.Module):
 
     def enhance_predict_agg(self, feats: Features, cut_time, walks_src,
                             walks_tgt, walks_bgd, node_degree=None,
-                            draws=None):
+                            draws=None, stats=None):
         """(pos [B, 1], neg [B, 1]) logits of the pairs (src, tgt) and
         (src, bgd) from the walks alone. ``draws``: per side a
-        ``TGATEnhanceDraws`` (training), or None."""
+        ``TGATEnhanceDraws`` (training), or None; ``stats``: per side the
+        batch statistics, or None (each side's own)."""
         d = draws or (None, None, None)
+        st = stats or (LOCAL_STATS,) * 3
         src, tgt, bgd = (self.walk_embedding(feats, w, cut_time, node_degree,
-                                             u)
-                         for w, u in ((walks_src, d[0]), (walks_tgt, d[1]),
-                                      (walks_bgd, d[2])))
+                                             u, s)
+                         for w, u, s in ((walks_src, d[0], st[0]),
+                                         (walks_tgt, d[1], st[1]),
+                                         (walks_bgd, d[2], st[2])))
         return self._affinity(src, tgt), self._affinity(src, bgd)

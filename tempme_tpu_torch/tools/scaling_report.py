@@ -1,0 +1,147 @@
+"""The data-parallel steps' collectives and communication, mesh by mesh.
+
+    python -m tempme_tpu_torch.tools.scaling_report [--max_world 8] \
+        [--out SCALING_torch.md] [--json_out scaling_report_torch.json]
+
+Port of ``tempme_tpu/tools/scaling_report.py``. For each mesh of the JAX
+tool's ``MESHES`` (dp x sp x tp): a dp mesh that ``--max_world`` allows
+runs on that many gloo ranks spawned on the CPU (``parallel/dryrun.py``),
+the TGN and the explainer train steps (``parallel/train.py``) on the dry
+run's tiny stream with ``--bs_per_dp`` rows a rank (weak scaling) and
+``--n_base`` neighbours, two steps each at float32 and dropout 0, and
+reports from the second step the collectives a rank makes by kind, the
+bytes it puts into them and the step's wall ms (the ranks share the host's
+cores: a check of the semantics and of the collectives' overhead, **not a
+hardware number**). The JAX tool counts the collectives XLA inserts in the
+compiled HLO; here the steps make them and count them themselves. A mesh
+with ``sp`` or ``tp`` above 1 is reported with the ``ValueError`` that
+``parallel/mesh.py::make_mesh`` raises: the sp/tp design is open.
+
+It writes the markdown table to ``--out`` and the rows to ``--json_out``
+(by default ``SCALING_torch.md`` and ``scaling_report_torch.json`` in the
+working directory; the JAX tool's ``SCALING.md`` and
+``scaling_report.json`` are its own).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+
+from ..parallel import dryrun as D
+from ..parallel import mesh as M
+
+MESHES = [(1, 1, 1), (2, 1, 1), (4, 1, 1), (8, 1, 1),
+          (1, 2, 1), (1, 1, 2), (4, 2, 1), (2, 2, 2)]
+STEPS = ("tgn", "explainer")
+
+
+def scaling_spec(world: int, bs_per_dp: int, n: int) -> dict:
+    """The TGN's and the explainer's deterministic dry-run runs (dropout 0,
+    float32) at ``bs_per_dp`` rows a rank and ``n`` neighbours, two timed
+    steps each."""
+    spec = D.tiny_spec(world, per_rank=bs_per_dp, n=n)
+    walk = D.tiny_walk_spec(world, per_rank=bs_per_dp, n=n)
+    runs = [dict(spec["runs"][1], record=(), timed=True),
+            dict(walk["runs"][1], record=(), timed=True)]
+    return dict(spec, runs=runs)
+
+
+def measure(world: int, bs_per_dp: int, n: int) -> dict:
+    """One dp mesh's row: per step kind the collectives of a rank by kind,
+    its bytes and the wall ms of the second step (rank 0's)."""
+    with tempfile.TemporaryDirectory(prefix="scaling_") as work:
+        results = D.run_spec(scaling_spec(world, bs_per_dp, n), world,
+                             "gloo", "cpu", work)
+    row = {"global_batch": bs_per_dp * world, "n_degree": n}
+    for kind, res in zip(STEPS, results[0]):
+        comm = res["comm"][-1]
+        row[kind] = {"collectives": comm["by_kind"],
+                     "comm_bytes_per_rank_per_step": comm["bytes"],
+                     "collective_ms": comm["ms"],
+                     "cpu_step_ms": res["wall_ms"][-1]}
+    return row
+
+
+def report(max_world: int, bs_per_dp: int, n: int) -> list:
+    rows = []
+    for dp, sp, tp in MESHES:
+        row = {"mesh": f"{dp}x{sp}x{tp}", "devices": dp * sp * tp}
+        if sp != 1 or tp != 1:
+            try:
+                M.make_mesh(dp, sp, tp)
+            except ValueError as e:
+                row["refused"] = str(e)
+        if "refused" not in row:
+            if dp > max_world:
+                continue
+            row.update(measure(dp, bs_per_dp, n))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def markdown(rows, max_world: int, bs_per_dp: int) -> str:
+    lines = [
+        "# SCALING (PyTorch port) - the data-parallel steps' collectives",
+        "",
+        "Generated by `tempme_tpu_torch.tools.scaling_report` with gloo "
+        f"ranks spawned on the CPU (up to {max_world}). Weak scaling: "
+        f"{bs_per_dp} rows a rank. `cpu step ms` is the wall time of one "
+        "step with the ranks sharing the host's cores: a check of the "
+        "semantics and the collectives' overhead, NOT a hardware number. "
+        "AG, AR, BC: all-gathers, all-reduces, broadcasts a rank makes a "
+        "step; bytes: what a rank puts into them.",
+        "",
+        "| mesh (dp x sp x tp) | global batch | TGN AG / AR / BC | TGN "
+        "bytes | TGN cpu step ms | explainer AG / AR / BC | explainer "
+        "bytes | explainer cpu step ms |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        if "refused" in r:
+            lines.append(f"| {r['mesh']} | - | refused: {r['refused']} "
+                         f"| | | | | |")
+            continue
+        cells = []
+        for kind in STEPS:
+            c = r[kind]["collectives"]
+            cells += [f"{c['all_gather']} / {c['all_reduce']} / "
+                      f"{c['broadcast']}",
+                      f"{r[kind]['comm_bytes_per_rank_per_step']:,}",
+                      f"{r[kind]['cpu_step_ms']:.1f}"]
+        lines.append(f"| {r['mesh']} | {r['global_batch']} | "
+                     + " | ".join(cells) + " |")
+    lines += [
+        "",
+        "A dp rank all-gathers the batch rows that the TGN's memory write "
+        "reads and the explainer's edge probabilities (its gamma draws are "
+        "taken on the global shapes), all-reduces the explainer's batch "
+        "statistics, and all-reduces every gradient with the loss in one "
+        "buffer. At world size 1 the local statistics and draws are the "
+        "global ones. The sp and tp meshes wait for their design "
+        "(`parallel/mesh.py`).",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="SCALING_torch.md")
+    ap.add_argument("--json_out", default="scaling_report_torch.json")
+    ap.add_argument("--bs_per_dp", type=int, default=8)
+    ap.add_argument("--n_base", type=int, default=4)
+    ap.add_argument("--max_world", type=int, default=8,
+                    help="the largest dp mesh to run (gloo ranks on the CPU)")
+    args = ap.parse_args(argv)
+    rows = report(args.max_world, args.bs_per_dp, args.n_base)
+    with open(args.json_out, "w") as f:
+        json.dump(rows, f, indent=1)
+    with open(args.out, "w") as f:
+        f.write(markdown(rows, args.max_world, args.bs_per_dp))
+    print(f"wrote {args.out} + {args.json_out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

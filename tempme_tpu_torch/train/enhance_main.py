@@ -93,27 +93,37 @@ class _Steps:
             base=self.base.model if training and self.base else None,
             predictor=self.predictor if training else None)
 
-    def _forward(self, mem, batch, draws: loops.EnhanceDraws, train_base):
+    def sample(self, batch, draws: loops.EnhanceDraws):
+        """The batch's ``(bgd, subs, walks)``, sampled from ``draws``."""
+        return sample_explainer_inputs(self.g, batch, self.dst_table, self.n,
+                                       draws)
+
+    def _forward(self, mem, batch, draws: loops.EnhanceDraws, train_base,
+                 inputs=None, stats=None, exchange=None):
         """((pos [B, 1], neg [B, 1]), new memory or None). Autograd
-        records the base only with ``train_base``."""
-        bgd, subs, walks = sample_explainer_inputs(
-            self.g, batch, self.dst_table, self.n, draws)
+        records the base only with ``train_base``. ``inputs``: ``sample``'s
+        result, or None to sample here; ``stats``: per side the
+        predictor's batch statistics, or None (each side's own);
+        ``exchange``: as in ``TGN.get_node_emb``."""
+        bgd, subs, walks = inputs if inputs is not None else \
+            self.sample(batch, draws)
         if self.base is None:
             return self.predictor.enhance_predict_agg(
                 self.feats, batch.ts, *walks, self.node_degree,
-                draws.pred), None
+                draws.pred, stats), None
         with torch.set_grad_enabled(train_base):
             if self.is_tgn:
                 embs, mem = self.base.model.get_node_emb(
                     self.feats, mem, batch.src, batch.dst, bgd, batch.ts,
-                    batch.eidx, *subs, drop=draws.base, update_memory=True)
+                    batch.eidx, *subs, drop=draws.base, update_memory=True,
+                    exchange=exchange)
             else:
                 embs = self.base.model.get_node_emb(
                     self.feats, batch.src, batch.dst, bgd, batch.ts, *subs,
                     drop=draws.base)
         return self.predictor.enhance_predict_agg(
             self.feats, batch.ts, *walks, *embs, self.node_degree,
-            draws.pred), mem
+            draws.pred, stats), mem
 
 
 class EnhanceTrainStep(_Steps):
@@ -134,26 +144,36 @@ class EnhanceTrainStep(_Steps):
              batch_size: int) -> loops.EnhanceDraws:
         return self._draw(generator, batch_size, training=True)
 
+    def zero_missing_grads(self) -> None:
+        """optax steps every leaf of its tree: a parameter this step did
+        not reach (the frozen base, the explainer's importance head, a
+        TGN's affinity head) takes a zero gradient here, not none, so that
+        Adam keeps one step count for all and AdamW decays them as optax
+        does."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+
+    @staticmethod
+    def finish(new_mem, loss, pos, neg):
+        """The step's results: the memory (a TGN's, else None) detached,
+        and the aux dict."""
+        if new_mem is not None:
+            new_mem = type(new_mem)(*(x.detach() for x in new_mem))
+        return new_mem, {"loss": loss.detach(),
+                         "pos": pos.detach().squeeze(-1),
+                         "neg": neg.detach().squeeze(-1)}
+
     def __call__(self, mem, batch: loops.Batch, draws: loops.EnhanceDraws,
                  train_base: bool = True):
         self.optimizer.zero_grad(set_to_none=True)
         (pos, neg), new_mem = self._forward(mem, batch, draws, train_base)
         loss = enhance_loss(pos, neg)
         loss.backward()
-        # optax steps every leaf of its tree: a parameter this step did not
-        # reach (the frozen base, the explainer's importance head, a TGN's
-        # affinity head) takes a zero gradient here, not none, so that Adam
-        # keeps one step count for all and AdamW decays them as optax does
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        self.zero_missing_grads()
         self.optimizer.step()
-        if new_mem is not None:
-            new_mem = type(new_mem)(*(x.detach() for x in new_mem))
-        return new_mem, {"loss": loss.detach(),
-                         "pos": pos.detach().squeeze(-1),
-                         "neg": neg.detach().squeeze(-1)}
+        return self.finish(new_mem, loss, pos, neg)
 
 
 class EnhanceEvalStep(_Steps):

@@ -69,8 +69,8 @@ from ..data import cache as C
 from ..data.events import RandEdgeSampler, load_dataset
 from ..data.graph import build_temporal_graph
 from ..explain.null_model import get_null_distribution
-from ..explain.tempme import (EdgeDraws, ImpDraws, TempME, kl_sparsity_loss,
-                              make_walk_inputs)
+from ..explain.tempme import (LOCAL_STATS, EdgeDraws, ImpDraws, TempME,
+                              kl_sparsity_loss, make_walk_inputs)
 from ..explain.tempme_tgat import TempMETGAT, TGATImpDraws
 from ..models.common import Features
 from ..ops import sampler as S
@@ -230,14 +230,19 @@ class _Steps:
                                    N_WALK_CONT, dev) for _ in range(3))
         return support, walks
 
+    def sample(self, batch, draws: ExplainerDraws):
+        """The batch's ``(bgd, subs, walks)``, sampled from ``draws``."""
+        return sample_explainer_inputs(self.g, batch, self.dst_table, self.n,
+                                       draws, self.k_hops)
+
     def _forward(self, batch, draws: ExplainerDraws, training: bool,
-                 inputs=None):
+                 inputs=None, stats=None):
         """``inputs``: the batch's ``(bgd, subs, walks)`` from the walk
-        cache (``cache_to_inputs``), or None to sample them from
-        ``draws``."""
+        cache (``cache_to_inputs``) or ``sample``, or None to sample them
+        from ``draws``. ``stats``: per side the explainer's batch
+        statistics, or None (each side's own; ``explain/tempme.py``)."""
         bgd, subs, walks = inputs if inputs is not None else \
-            sample_explainer_inputs(self.g, batch, self.dst_table, self.n,
-                                    draws, self.k_hops)
+            self.sample(batch, draws)
         args = (batch.src, batch.dst, bgd, batch.ts, batch.eidx, subs)
         with torch.no_grad():
             pos_ori, neg_ori = self.contrast(self.feats, *args, None)
@@ -251,7 +256,9 @@ class _Steps:
             explanation = self.explainer.retrieve_explanation(
                 self.feats, subs, imps, walks, training, draws.gamma)
         else:
-            imps = [self.explainer(self.feats, walks[i], batch.ts, imp[i])
+            st = stats or (LOCAL_STATS,) * 3
+            imps = [self.explainer(self.feats, walks[i], batch.ts, imp[i],
+                                   st[i])
                     for i in range(3)]
             explanation = self.explainer.retrieve_explanation(
                 self.feats, subs, imps, walks, training, draws.edge,
@@ -299,28 +306,46 @@ class ExplainerTrainStep(_Steps):
         return ExplainerDraws(support, walks, imp, edge,
                               generator if self.if_bern else None)
 
+    def losses(self, out):
+        """The step's loss from ``_forward``'s ``out``: (BCE(pred, y_ori) +
+        beta * KL, the BCE, y_ori, the explained logits [2B, 1]); each a
+        mean over the batch's rows, padded rows among them (as in the JAX
+        package)."""
+        y_ori = (torch.cat([out["pos_ori"], out["neg_ori"]]) > 0.0).float()
+        pred = torch.cat([out["pos"], out["neg"]])
+        pred_loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            pred, y_ori)
+        return pred_loss + self.beta * out["kl"], pred_loss, y_ori, pred
+
+    @staticmethod
+    @torch.no_grad()
+    def fidelity(out):
+        """(fid_prob, fid_logit): the explained logits' mean gain over the
+        base's, as probabilities and as logits."""
+        pos, neg, pos_ori, neg_ori = (out[k] for k in ("pos", "neg",
+                                                       "pos_ori", "neg_ori"))
+        return (torch.cat([torch.sigmoid(pos) - torch.sigmoid(pos_ori),
+                           torch.sigmoid(neg_ori) - torch.sigmoid(neg)]
+                          ).mean(),
+                torch.cat([pos - pos_ori, neg_ori - neg]).mean())
+
+    @staticmethod
+    def finish(loss, pred_loss, kl, y_ori, pred, fid_prob, fid_logit):
+        """The step's aux dict."""
+        return dict(loss=loss.detach(), pred_loss=pred_loss.detach(),
+                    kl=kl.detach(), y_ori=y_ori.squeeze(-1),
+                    y_pred=torch.sigmoid(pred.detach()).squeeze(-1),
+                    fid_prob=fid_prob, fid_logit=fid_logit)
+
     def __call__(self, batch: loops.Batch, draws: ExplainerDraws,
                  inputs=None):
         self.optimizer.zero_grad(set_to_none=True)
         out = self._forward(batch, draws, self.if_bern, inputs)
-        pos, neg, pos_ori, neg_ori = (out[k] for k in ("pos", "neg",
-                                                       "pos_ori", "neg_ori"))
-        y_ori = (torch.cat([pos_ori, neg_ori]) > 0.0).float()
-        pred = torch.cat([pos, neg])
-        pred_loss = torch.nn.functional.binary_cross_entropy_with_logits(
-            pred, y_ori)
-        loss = pred_loss + self.beta * out["kl"]
+        loss, pred_loss, y_ori, pred = self.losses(out)
         loss.backward()
         self.optimizer.step()
-        with torch.no_grad():
-            fid_prob = torch.cat([torch.sigmoid(pos) - torch.sigmoid(pos_ori),
-                                  torch.sigmoid(neg_ori) - torch.sigmoid(neg)]
-                                 ).mean()
-            fid_logit = torch.cat([pos - pos_ori, neg_ori - neg]).mean()
-        return dict(loss=loss.detach(), pred_loss=pred_loss.detach(),
-                    kl=out["kl"].detach(), y_ori=y_ori.squeeze(-1),
-                    y_pred=torch.sigmoid(pred.detach()).squeeze(-1),
-                    fid_prob=fid_prob, fid_logit=fid_logit)
+        return self.finish(loss, pred_loss, out["kl"], y_ori, pred,
+                           *self.fidelity(out))
 
 
 class ExplainerEvalStep(_Steps):

@@ -14,12 +14,17 @@ then call ``install()`` before the epoch loop and, after each epoch,
 * finiteness -- ``check_finite(tensors_or_module, where)`` scans on the
   host and names the first offending tensor by its state-dict path.
 
-The JAX module's other two checks have no counterpart here:
-``assert_donated`` verifies that XLA consumed a jitted call's donated
-buffers; PyTorch has no buffer donation (its steps update parameters in
-place), so there is nothing to verify. ``count_collectives`` and
-``assert_collectives`` count the collectives of a sharded step's HLO; they
-wait for the rest of the port's distributed path (ROADMAP A16b).
+* collectives -- ``count_collectives(step)`` reads a data-parallel step's
+  collectives of its last call by kind (``parallel/train.py``: the JAX
+  module counts them in the compiled HLO; here the step makes them
+  itself and counts them as it does), and ``assert_collectives(step,
+  golden, where)`` holds them to a committed golden
+  (``parallel/train.py::GOLDEN_COLLECTIVES``), so that a changed design
+  fails loudly.
+
+``assert_donated`` has no counterpart: it verifies that XLA consumed a
+jitted call's donated buffers; PyTorch has no buffer donation (its steps
+update parameters in place), so there is nothing to verify.
 """
 from __future__ import annotations
 
@@ -84,3 +89,23 @@ def check_finite(tree, where: str) -> None:
             raise FloatingPointError(
                 f"[debug] non-finite values in {where} at {path}: "
                 f"{bad}/{t.numel()} bad")
+
+
+def count_collectives(step) -> dict:
+    """The collectives of a data-parallel step's last call on this rank,
+    by kind (``all_gather``, ``all_reduce``, ``broadcast``): its
+    ``comm.by_kind`` (the step's caller resets ``comm`` before the call,
+    as ``parallel/dryrun.py`` does)."""
+    return dict(step.comm.by_kind)
+
+
+def assert_collectives(step, golden: dict, where: str = "") -> None:
+    """Hold a data-parallel step's collectives of its last call to a
+    committed golden (``parallel/train.py::GOLDEN_COLLECTIVES``; change
+    the golden with the design that changes them)."""
+    got = count_collectives(step)
+    if got != dict(golden):
+        raise AssertionError(
+            f"[debug] collective counts drifted in {where or 'step'}: got "
+            f"{got}, golden {dict(golden)}; if the design changed on "
+            f"purpose, change parallel/train.py::GOLDEN_COLLECTIVES with it")

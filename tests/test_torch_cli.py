@@ -1,8 +1,9 @@
 """The port's command line and pipeline on the CPU, on the ``ml_synth``
 layout: ``cli.main`` sends each command to its entry point with its
 arguments and the device (``visualize`` and ``profile`` too), runs the
-host tools, and refuses the commands that are not ported (non-zero,
-naming their ROADMAP item or ``chip_smoke.py``); ``pipeline`` (``batch_train``) runs learn-base ->
+host tools and ``scaling-report``, and refuses ``smoke`` (non-zero,
+naming ``chip_smoke.py``) and unknown commands; ``pipeline``
+(``batch_train``) runs learn-base ->
 explain -> enhance for a GraphMixer, one epoch a stage, in a scratch
 working directory with ``TEMPME_DATA_DIR`` set, and a failing stage is
 recorded as ``"error"`` and makes the exit code non-zero.
@@ -57,12 +58,37 @@ def test_host_tools_run(workdir, tmp_path, capsys):  # noqa: F811
 
 
 @pytest.mark.parametrize("cmd,names", [
-    ("scaling-report", "A16"), ("smoke", "python3 chip_smoke.py"),
-    ("no-such-command", "unknown")])
+    ("smoke", "python3 chip_smoke.py"), ("no-such-command", "unknown")])
 def test_unported_commands_exit_non_zero(cmd, names, capsys):
     assert cli.main([cmd, "--data", "synth"], device="cpu") == 1
     assert names in capsys.readouterr().err
     assert cli.main([]) == 1
+
+
+def test_scaling_report_runs_at_world_sizes_1_and_2(tmp_path, monkeypatch):
+    """``cli scaling-report`` (gloo ranks on the CPU) writes only where
+    ``--out`` and ``--json_out`` say: the dp meshes of 1 and 2 ranks with
+    each step's collectives a rank by kind, the sp and tp meshes refused
+    with ``make_mesh``'s reason."""
+    import json
+    from tempme_tpu_torch.parallel.train import GOLDEN_COLLECTIVES
+    monkeypatch.chdir(tmp_path)
+    out, js = tmp_path / "out" / "S.md", tmp_path / "out" / "s.json"
+    out.parent.mkdir()
+    assert cli.main(["scaling-report", "--max_world", "2", "--out",
+                     str(out), "--json_out", str(js)]) == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["out"]
+    rows = {r["mesh"]: r for r in json.loads(js.read_text())}
+    assert sorted(rows) == ["1x1x1", "1x1x2", "1x2x1", "2x1x1", "2x2x2",
+                            "4x2x1"]
+    for mesh in ("1x1x2", "1x2x1", "2x2x2", "4x2x1"):
+        assert "sp/tp design" in rows[mesh]["refused"]
+    two = rows["2x1x1"]
+    assert two["tgn"]["collectives"] == GOLDEN_COLLECTIVES["tgn"]
+    assert two["explainer"]["collectives"] == GOLDEN_COLLECTIVES["explainer"]
+    assert rows["1x1x1"]["explainer"]["collectives"]["all_gather"] == 0
+    assert two["global_batch"] == 2 * rows["1x1x1"]["global_batch"] == 16
+    assert "NOT a hardware number" in out.read_text()
 
 
 def test_pipeline_runs_every_stage(workdir, tmp_path,  # noqa: F811

@@ -61,12 +61,13 @@ RANK_TIMEOUT = 240
 
 
 def _launch(spec, work, backend="gloo", device="cpu"):
-    """Start the ranks in a subprocess; returns it (wait with ``_join``)."""
+    """Start the ranks in a subprocess; returns it (wait with ``_join``).
+    It forks them, so they share its imports."""
     path = os.path.join(work, "spec.pt")
     torch.save(spec, path)
     code = ("import sys; from tempme_tpu_torch.parallel import dryrun as D; "
             "D.launch(D.run_ranks, 2, (sys.argv[1], sys.argv[2], "
-            f"sys.argv[3], sys.argv[4], 1), {RANK_TIMEOUT})")
+            f"sys.argv[3], sys.argv[4], 1), {RANK_TIMEOUT}, 'fork')")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     return subprocess.Popen(
         [sys.executable, "-c", code, backend, device, path, work], cwd=ROOT,

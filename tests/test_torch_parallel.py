@@ -7,7 +7,10 @@ package, and the data-parallel step on one process; no process is launched
 package's global batches (one process, a dp mesh of the virtual CPU
 devices), exactly; ``sp`` or ``tp`` above 1 and nccl on a shared card
 raise. On one process the sharded step equals ``TGNTrainStep`` bit for bit
-(no collective runs), padded rows and dropout included.
+(no collective runs), padded rows and dropout included. Each sharded step
+(TGN, explainer, TGAT explainer, enhance) makes the committed golden's
+collectives by kind (``utils/debug.py::count_collectives``) on a stand-in
+process group of 2 that runs in this process; a drifted golden raises.
 """
 import dataclasses
 
@@ -191,3 +194,46 @@ def test_sharded_step_on_one_process_is_the_plain_step(tmp_path):
     assert all(torch.equal(x, y) for x, y in zip(mem2, mem3))
     with pytest.raises(ValueError, match="lacks"):
         C.restore_sharded(str(tmp_path), 3, {"other": torch.zeros(1)})
+
+
+class _TwoRanks:
+    """A stand-in for ``torch.distributed`` with 2 ranks whose second rank
+    holds the same rows: an all-gather repeats the tensor, an all-reduce
+    doubles it. It counts nothing itself: the step counts its calls."""
+
+    @staticmethod
+    def all_gather(parts, x, group=None):
+        for p in parts:
+            p.copy_(x)
+
+    @staticmethod
+    def all_reduce(x, group=None):
+        x.mul_(2)
+
+
+@pytest.mark.parametrize("run,golden", [
+    (1, "tgn"), (3, "explainer"), (5, "tgat-explainer"), (7, "enhance-tgn")])
+def test_collectives_match_the_goldens(run, golden, monkeypatch):
+    from tempme_tpu_torch.parallel import dryrun as D
+    from tempme_tpu_torch.utils import debug
+    monkeypatch.setattr(P, "dist", _TwoRanks)
+    spec = D.tiny_spec(2)
+    spec = dict(spec, runs=spec["runs"] + D.tiny_walk_spec(2)["runs"],
+                node_degree=D.tiny_walk_spec(2)["node_degree"])
+    r = spec["runs"][run]
+    built = D._build(spec, r, "cpu")
+    step, _, place_batch = built["step"](M.Mesh(2, 1, 1, 0, group=object()))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    batch = place_batch(r["batches"][0])
+    draws = step.draw(gen, r["batches"][0].src.shape[0])
+    if r["kind"] in ("explainer", "tgat-explainer"):
+        step(batch, draws)
+    else:
+        step(built["mem"], batch, draws)
+    assert debug.count_collectives(step) == P.GOLDEN_COLLECTIVES[golden]
+    debug.assert_collectives(step, P.GOLDEN_COLLECTIVES[golden], golden)
+    drifted = dict(P.GOLDEN_COLLECTIVES[golden])
+    drifted["all_reduce"] += 1
+    with pytest.raises(AssertionError, match="drifted in " + golden):
+        debug.assert_collectives(step, drifted, golden)
