@@ -95,9 +95,10 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """The mesh axes (``parallel/mesh.py``): ``dp`` data parallel over the
-    batch; ``sp`` (the support axis) and ``tp`` (the feature axis) wait
-    for their design (ROADMAP A16's sp/tp design), and ``make_mesh``
-    refuses them above 1."""
+    batch; ``sp`` the support's columns and the TGN memory's rows; ``tp``
+    the Dense kernels' output rows (with their Adam moments). The TGN step
+    runs all three; the explainer's and enhance's steps run dp alone
+    (ROADMAP A16d)."""
     dp: int = 1
     sp: int = 1
     tp: int = 1

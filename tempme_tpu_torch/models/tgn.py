@@ -30,7 +30,15 @@ without them the model is the eval form. The explainer's hooks:
 ``contrast(..., explain_weights=..., update_memory=False)`` weights each
 support edge's attention probability and leaves the memory as it was, and
 ``ratio_contrast`` scores the 16-ratio fidelity sweep in one pass. The
-attention projections run in ``compute_dtype`` (bf16 by default, as in the
+data-parallel step's hooks: ``exchange`` (the memory write reads the global
+batch) and ``shard`` (the memory's rows and the support's columns over the
+mesh's ``sp`` axis, ``parallel/train.py::RowShard``; ``WHOLE``, every row
+and column, by default): the state's ``memory`` and ``msg_buf`` are then
+this rank's contiguous block of rows, the message function and updater
+advance those rows only, the positives and messages are written to them
+only, and the embeddings read the rows they need through the shard's
+distributed row gather. The attention
+projections run in ``compute_dtype`` (bf16 by default, as in the
 JAX package; ``ops/attention.py``). The layers start from the JAX
 package's initialisers, and the GRU is flax's cell (no bias on the reset
 and update gates' recurrent terms), so trained weights stay comparable.
@@ -68,6 +76,37 @@ def init_memory_state(num_nodes: int, memory_dim: int, raw_dim: int,
         msg_buf=torch.zeros((num_nodes, raw_dim), device=dev),
         msg_ts=torch.zeros((num_nodes,), device=dev),
         msg_valid=torch.zeros((num_nodes,), dtype=torch.bool, device=dev))
+
+
+class Whole:
+    """The memory's rows and the support's columns all on this process: the
+    identity form of ``parallel/train.py::RowShard`` (the mesh's ``sp``
+    axis), whose hooks the model calls. ``lo``: the first of its rows;
+    ``local``: its rows of a whole table; ``columns``: its chunk of a
+    hop's columns; ``gather_rows(memory, node, ids)``: the memory and
+    node-feature rows that the ids (global) read, and the map of global
+    ids to them; ``gather_columns(x, b)``: a side's hop-0 embeddings whole
+    from its chunk ``x`` of ``b`` anchors' columns."""
+    lo = 0
+
+    @staticmethod
+    def local(x):
+        return x
+
+    @staticmethod
+    def columns(x):
+        return x
+
+    @staticmethod
+    def gather_rows(memory, node, ids):
+        return memory, node, Whole.local     # a global id is its own row
+
+    @staticmethod
+    def gather_columns(x, b):
+        return x
+
+
+WHOLE = Whole()
 
 
 class GRUCell(nn.Module):
@@ -242,35 +281,41 @@ class TGN(nn.Module):
         return out
 
     # -- memory machinery (functional) ---------------------------------
-    def updated_memory(self, state: TGNMemoryState):
+    def updated_memory(self, state: TGNMemoryState, shard=WHOLE):
         """Advance the memory rows that hold a pending message through the
-        message function and the updater: (memory, last_update)."""
+        message function and the updater: (memory, last_update). The
+        state's ``memory`` and ``msg_buf`` are ``shard``'s rows, and so is
+        the memory returned; ``last_update`` is whole."""
         msgs = state.msg_buf if self.message_mlp is None \
             else self.message_mlp(state.msg_buf)
         new_mem = self.memory_updater(msgs, state.memory)
-        valid = state.msg_valid[:, None]
-        return (torch.where(valid, new_mem, state.memory),
+        valid = shard.local(state.msg_valid)
+        return (torch.where(valid[:, None], new_mem, state.memory),
                 torch.where(state.msg_valid, state.msg_ts, state.last_update))
 
     def _persist_positives(self, state, upd_memory, upd_last_update,
-                           positives) -> TGNMemoryState:
+                           positives, shard=WHOLE) -> TGNMemoryState:
+        """The advanced memory of the positives that held a pending
+        message (of ``shard``'s rows)."""
         is_pos = torch.zeros(self.num_nodes, dtype=torch.bool,
                              device=positives.device)
         is_pos[positives.long()] = True
         take = is_pos & state.msg_valid
         return state._replace(
-            memory=torch.where(take[:, None], upd_memory, state.memory),
+            memory=torch.where(shard.local(take)[:, None], upd_memory,
+                               state.memory),
             last_update=torch.where(take, upd_last_update, state.last_update),
             msg_valid=state.msg_valid & ~is_pos)
 
     def _store_messages(self, state, src, tgt, src_emb, tgt_emb, cut_time,
-                        eidx, feats: Features) -> TGNMemoryState:
+                        eidx, feats: Features, shard=WHOLE) -> TGNMemoryState:
         """Raw messages, source side then destination side; per node the
         last one (so the destination side wins for a node in both), or with
         the ``mean`` aggregator the mean of its messages, stamped with the
         last one's time. The mean sums each node's messages as a product
         with a 0/1 matrix, so the card gives the same result run after
-        run (no atomic adds)."""
+        run (no atomic adds). Only ``shard``'s rows of ``msg_buf`` are
+        written (the flags and times are whole)."""
         e_feat = feats.edge[eidx.long()]
         nodes = torch.cat([src, tgt]).long()
         t_all = torch.cat([cut_time, cut_time])
@@ -287,60 +332,76 @@ class TGN(nn.Module):
         has_msg = winner >= 0
         w = winner.clamp(min=0)
         if self.aggregator == "last":
-            agg = msgs[w]
+            agg = msgs[shard.local(w)]
         else:
             uniq, inv = torch.unique(nodes, return_inverse=True)
             onehot = (inv[None, :] == torch.arange(
                 len(uniq), device=nodes.device)[:, None]).to(msgs.dtype)
-            agg = torch.zeros_like(state.msg_buf)
+            agg = state.msg_buf.new_zeros((self.num_nodes,)
+                                          + state.msg_buf.shape[1:])
             agg[uniq] = (onehot @ msgs) / onehot.sum(dim=1, keepdim=True)
+            agg = shard.local(agg)
         return state._replace(
-            msg_buf=torch.where(has_msg[:, None], agg.detach(),
+            msg_buf=torch.where(shard.local(has_msg)[:, None], agg.detach(),
                                 state.msg_buf),
             msg_ts=torch.where(has_msg, t_all[w], state.msg_ts),
             msg_valid=state.msg_valid | has_msg)
 
     # -- embedding pyramid ---------------------------------------------
-    def _time_feats(self, cut_time, sub: Subgraph, hops: int):
+    def _time_feats(self, cut_time, sub: Subgraph, hops: int, shard=WHOLE):
         """The time encodings of the first ``hops`` levels, each level's dt
-        against its parent's time: [B, width, Dt] per level."""
+        against its parent's time: [B, width, Dt] per level; hop 0 whole,
+        the deeper hops ``shard``'s columns (``_embed_chain``)."""
         b = cut_time.shape[0]
-        n = sub.nodes[0].shape[1]
         out, standard = [], cut_time[:, None]
-        for t_rec in sub.ts[:hops]:
-            delta = standard[:, :, None] - t_rec.reshape(b, -1, n)
+        for i, t_rec in enumerate(sub.ts[:hops]):
+            delta = standard[:, :, None] - t_rec.reshape(
+                b, standard.shape[1], -1)
             out.append(self.time_encoder(delta.reshape(b, -1)))
-            standard = t_rec
+            standard = t_rec if i else shard.columns(t_rec)
         return out
 
-    def _embed_chain(self, feats: Features, memory, anchors, cut_time,
-                     sub: Subgraph, drop: Sequence[AttnDraws] | None = None,
-                     explain_weights=None, edge_attr=None):
-        """The attention pyramid's embeddings [B, node_dim]. ``edge_attr``:
-        per hop the edge features [B, width, De] given from outside in
-        place of the support's own, or None."""
+    def _embed_chain(self, feats: Features, node, memory, at, anchors,
+                     cut_time, sub: Subgraph,
+                     drop: Sequence[AttnDraws] | None = None,
+                     explain_weights=None, edge_attr=None, shard=WHOLE):
+        """The attention pyramid's embeddings [B, node_dim]. ``node`` and
+        ``memory``: the node-feature and memory rows that
+        ``shard.gather_rows`` gave, ``at`` its map of global ids to them;
+        ``shard`` (``WHOLE``, or an sp rank's,
+        ``parallel/train.py::RowShard``) holds the support's columns below
+        hop 0: the layers below the root run on them and
+        ``shard.gather_columns`` brings hop 0's embeddings whole for the
+        root (an sp rank's root repeats its group's work; its caller
+        weighs the loss). ``edge_attr``: per hop the edge features [B,
+        width, De] given from outside in place of the support's own, or
+        None."""
         b = anchors.shape[0]
         n = sub.nodes[0].shape[1]
-        node_levels = [anchors[:, None]] + list(sub.nodes)
-        combined = feats.node + memory          # memory added to raw features
-        tfeats = self._time_feats(cut_time, sub, len(sub.ts))
+        node_levels = [anchors[:, None]] + [
+            shard.columns(sub.nodes[0]) if len(sub.nodes) > 1
+            else sub.nodes[0]] + list(sub.nodes[1:])
+        combined = node + memory                # memory added to raw features
+        tfeats = self._time_feats(cut_time, sub, len(sub.ts), shard)
 
         num_levels = len(node_levels)
         prev_emb = None
         for i in range(num_levels - 1):
             t = num_levels - 1 - i
             layer = self.attn_layers[i]
-            src_feat = gather_rows(combined, node_levels[t - 1]).reshape(
+            src_feat = gather_rows(combined, at(node_levels[t - 1])).reshape(
                 -1, self.node_dim)
             bq = src_feat.shape[0]
             src_t = self.time_encoder(
                 torch.zeros((bq, 1), device=src_feat.device))
-            ngh_nodes = node_levels[t]
+            ngh_nodes = sub.nodes[0] if t == 1 else node_levels[t]
             if prev_emb is None:
                 k_tab, v_tab = layer.project_node(combined)
-                k_nv = gather_rows(k_tab, ngh_nodes).reshape(bq, n, -1)
-                v_nv = gather_rows(v_tab, ngh_nodes).reshape(bq, n, -1)
+                k_nv = gather_rows(k_tab, at(ngh_nodes)).reshape(bq, n, -1)
+                v_nv = gather_rows(v_tab, at(ngh_nodes)).reshape(bq, n, -1)
             else:
+                if t == 1:
+                    prev_emb = shard.gather_columns(prev_emb, b)
                 k_nv, v_nv = layer.project_node(prev_emb.reshape(bq, n, -1))
             if edge_attr is not None:
                 e_raw = edge_attr[t - 1].reshape(bq, n, -1)
@@ -433,7 +494,7 @@ class TGN(nn.Module):
                      src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
                      sub_bgd, drop=None, explain_weights=None,
                      update_memory: bool = True, edge_attr=None,
-                     exchange=None):
+                     exchange=None, shard=WHOLE):
         """((src_emb, tgt_emb, bgd_emb), new_state): the memory advanced for
         the embeddings, then (``update_memory``) the positives persisted and
         the batch's messages stored; with ``update_memory=False`` the state
@@ -449,29 +510,41 @@ class TGN(nn.Module):
         probabilities, or None. ``edge_attr``: per side a per-hop list of
         edge features replacing the support's, or None. The identity and
         time embeddings read neither the supports (which may be None),
-        the draws nor these two."""
-        upd_memory, upd_last = self.updated_memory(state)
+        the draws nor these two. ``shard``: the memory's rows and the
+        supports' columns this process holds (``WHOLE``, or its place on
+        the mesh's ``sp`` axis, ``parallel/train.py::RowShard``: the
+        state's memory and message rows are then its block, and the
+        supports' hops below hop 0 its columns); an sp shard takes neither
+        explain weights nor edge features."""
+        if shard is not WHOLE and (explain_weights is not None
+                                   or edge_attr is not None):
+            raise ValueError("the sp-sharded embedding takes no explain "
+                             "weights or edge features (ROADMAP A16d)")
+        upd_memory, upd_last = self.updated_memory(state, shard)
+        sides = ((src, sub_src), (tgt, sub_tgt), (bgd, sub_bgd))
+        mem_rows, node_rows, at = shard.gather_rows(
+            upd_memory, feats.node,
+            [ids for anchors, sub in sides for ids in [anchors] + (
+                list(sub.nodes) if self.reads_support else [])])
         drop = drop or (None, None, None)
         ew = explain_weights or (None, None, None)
         ea = edge_attr or (None, None, None)
 
         def embed(side, anchors, sub):
             if self.embedding_type == "identity":
-                return upd_memory[anchors.long()]
+                return mem_rows[at(anchors).long()]
             if self.embedding_type == "time":
                 k = min(side, 1)        # the source's statistics, else dst's
                 td = (cut_time - upd_last[anchors.long()]
                       - self.mean_time_shift[k]) / self.std_time_shift[k]
-                return upd_memory[anchors.long()] * (
+                return mem_rows[at(anchors).long()] * (
                     1.0 + self.jodie_proj(td[:, None]))
-            return self._embed_chain(feats, upd_memory, anchors, cut_time,
-                                     sub, drop[side], ew[side], ea[side])
+            return self._embed_chain(feats, node_rows, mem_rows, at, anchors,
+                                     cut_time, sub, drop[side], ew[side],
+                                     ea[side], shard)
 
-        src_emb, tgt_emb, bgd_emb = (
-            embed(i, anchors, sub)
-            for i, (anchors, sub) in enumerate(((src, sub_src),
-                                                (tgt, sub_tgt),
-                                                (bgd, sub_bgd))))
+        src_emb, tgt_emb, bgd_emb = (embed(i, anchors, sub)
+                                     for i, (anchors, sub) in enumerate(sides))
         if update_memory:
             rows = (src, tgt, cut_time, eidx, src_emb, tgt_emb)
             if exchange is not None:
@@ -479,20 +552,21 @@ class TGN(nn.Module):
                                 tgt_emb.detach())
             m_src, m_tgt, m_time, m_eidx, m_src_emb, m_tgt_emb = rows
             state = self._persist_positives(state, upd_memory, upd_last,
-                                            torch.cat([m_src, m_tgt]))
+                                            torch.cat([m_src, m_tgt]), shard)
             state = self._store_messages(state, m_src, m_tgt, m_src_emb,
-                                         m_tgt_emb, m_time, m_eidx, feats)
+                                         m_tgt_emb, m_time, m_eidx, feats,
+                                         shard)
         return (src_emb, tgt_emb, bgd_emb), state
 
     def contrast(self, feats: Features, state: TGNMemoryState, src, tgt,
                  bgd, cut_time, eidx, sub_src, sub_tgt, sub_bgd, drop=None,
                  explain_weights=None, update_memory: bool = True,
-                 edge_attr=None, exchange=None):
+                 edge_attr=None, exchange=None, shard=WHOLE):
         """((pos [B, 1], neg [B, 1]) affinity logits, new_state)."""
         (s, t, b), state = self.get_node_emb(
             feats, state, src, tgt, bgd, cut_time, eidx, sub_src, sub_tgt,
             sub_bgd, drop, explain_weights, update_memory, edge_attr,
-            exchange)
+            exchange, shard)
         return (self.affinity_score(s, t), self.affinity_score(s, b)), state
 
     forward = contrast

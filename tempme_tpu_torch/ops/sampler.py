@@ -130,13 +130,18 @@ def sample_neighbors(g, u: torch.Tensor, nodes: torch.Tensor,
 def find_k_hop(g, draws: Sequence[torch.Tensor], src: torch.Tensor,
                times: torch.Tensor, k: int, n: int,
                eids: torch.Tensor | None = None, bias: float = 0.0,
-               sample_method: str = "multinomial") -> Subgraph:
+               sample_method: str = "multinomial",
+               columns=None) -> Subgraph:
     """Recursive k-hop support, widths n, n**2, ..., n**k. Hop 0 samples
     each (src, t) from its strict history (cut at ``eids`` when given);
     hop l > 0 samples each previous-hop event's endpoint with the history
     cut at that event's edge. ``draws[l]`` is hop l's [B * n**l, n] uniform
     tensor, or in the exp-decay and binary modes (``bias``,
-    ``sample_method``, as ``sample_neighbors``) its Gumbels."""
+    ``sample_method``, as ``sample_neighbors``) its Gumbels. ``columns``:
+    None, or a map of hop 0's [B, n] arrays to the columns whose children
+    the deeper hops sample (an sp rank's chunk,
+    ``parallel/train.py::RowShard``; hop 0 is returned whole, hop l of
+    width n**l / sp then, ``draws[l]`` cut to match)."""
     b = src.shape[0]
     nodes, es, tss = [], [], []
     cur_n, cur_t, cur_e = src, times, eids
@@ -150,6 +155,8 @@ def find_k_hop(g, draws: Sequence[torch.Tensor], src: torch.Tensor,
         es.append(ne.reshape(b, -1))
         tss.append(nt.reshape(b, -1))
         cur_n, cur_e, cur_t = nn_, ne, nt
+        if columns is not None and layer == 0:
+            cur_n, cur_e, cur_t = (columns(x) for x in (nn_, ne, nt))
     return Subgraph(tuple(nodes), tuple(es), tuple(tss))
 
 

@@ -1,12 +1,15 @@
-"""Checkpoints of the replicated dp train state, restorable at any world
-size.
+"""Checkpoints of the sharded train state, restorable at any mesh.
 
-Port of ``tempme_tpu/parallel/checkpoint.py`` (Orbax there). Under
-replicated-state dp every rank holds the same bytes, so rank 0 alone writes
-the state (parameters, Adam state, memory, generator and the step) in the
-port's checkpoint format (``utils/checkpoint.py``) under
-``{ckpt_dir}/step_{step}``, and every rank, at any world size, reads the
-same file onto its own device: the dp analog of JAX's resharding restore.
+Port of ``tempme_tpu/parallel/checkpoint.py`` (Orbax there). A checkpoint
+holds the **whole** state in the port's checkpoint format
+(``utils/checkpoint.py``) under ``{ckpt_dir}/step_{step}``: the sharded
+TGN step's ``state_dict`` gathers it on every rank (the memory's row
+blocks over sp, the tp shards of the weights and their Adam moments over
+tp; the dp replicas hold the same bytes), and rank 0 alone writes it. Every
+rank of any mesh, at any world size, reads the same file onto its own
+device, and the step's ``load_state_dict`` cuts this rank's shards out of
+it: the analog of JAX's resharding restore (a state saved at (2,2,2)
+restores at (1,1,1) or (1,2,1)).
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ def to_cpu(tree):
 
 
 def save_sharded(ckpt_dir: str, state: dict, step: int) -> str:
-    """Rank 0 writes ``state`` (a dict of tensors and plain containers)
-    and ``step`` under ``ckpt_dir/step_{step}``; then every rank meets at a
+    """Rank 0 writes ``state`` (a dict of tensors and plain containers:
+    the whole state, as the sharded steps' ``state_dict`` gathers it) and
+    ``step`` under ``ckpt_dir/step_{step}``; then every rank meets at a
     barrier. Returns the step's directory."""
     path = osp.abspath(osp.join(ckpt_dir, f"step_{step}"))
     if _rank() == 0:
@@ -70,8 +74,8 @@ def _like(x, ref, where: str):
 
 
 def restore_sharded(ckpt_dir: str, step: int, template: dict) -> dict:
-    """``step``'s state at any world size: the keys of ``template`` (the
-    saved ``state``'s structure, such as this rank's current state) must
+    """``step``'s whole state at any mesh: the keys of ``template`` (the
+    saved ``state``'s structure, such as this rank's ``state_dict``) must
     all be there; a tensor whose path ``template`` also holds takes its
     device and must have its shape, any other (the Adam state of a fresh
     optimizer, the generator's) stays on the CPU for its owner's

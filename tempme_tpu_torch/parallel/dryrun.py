@@ -1,12 +1,14 @@
-"""The data-parallel dry run: the TGN, explainer, TGAT-explainer and
-enhance train steps.
+"""The sharded dry run: the TGN train step on the ('dp', 'sp', 'tp') mesh,
+the explainer, TGAT-explainer and enhance train steps on dp.
 
     python -m tempme_tpu_torch.parallel.dryrun --world N [--backend gloo] [--device cpu]
 
 Port of ``__graft_entry__.py::dryrun_multichip``: launches N ranks (spawned
 processes), runs each sharded train step (``parallel/train.py``) on a tiny
-stream (256 events, 32 nodes, width 16, batch 4 a rank, 4 neighbours), and
-prints the JAX dry run's ``ok`` lines: the TGN's training-form loss
+stream (256 events, 32 nodes, width 16, batch 4 a rank, 4 neighbours; the
+TGN as the JAX dry run on the mesh ``factorize(N)``: batch 4 a dp index,
+``4 sp`` neighbours, width ``16 tp``), and prints the JAX dry run's ``ok``
+lines: the TGN's training-form loss
 (dropout 0.1, bf16 projections) and, at dropout 0 and float32, its loss and
 every memory field of two steps against the 1-process step on the same
 global batches and draws at 1e-5; the explainer's (a ``TempME`` on a frozen
@@ -109,7 +111,8 @@ def launch(fn, world: int, args=(), timeout: float = 600.0,
 # -- specs ---------------------------------------------------------------
 def make_run(model: dict, batches, lr: float = 1e-3, seed: int = 0,
              draws=None, state=None, record=(), save_at=None,
-             timed=False, kind: str = "tgn", base=None, null=None) -> dict:
+             timed=False, kind: str = "tgn", base=None, null=None,
+             restore=None) -> dict:
     """One run of a spec: ``kind`` the step (``KINDS``), ``model`` the
     keyword arguments (without the device) of the trained model (the
     ``TGN``; the ``TempME`` or ``TempMETGAT`` explainer; enhance's
@@ -125,13 +128,14 @@ def make_run(model: dict, batches, lr: float = 1e-3, seed: int = 0,
     generator), ``record`` the steps after which the whole state is kept
     (0: before the first), ``save_at`` the step after which
     ``save_sharded`` writes it, ``timed`` to time each step and its
-    collectives."""
+    collectives, ``restore`` a TGN run's ``(ckpt_dir, step)`` whose whole
+    state ``restore_sharded`` reads after ``place`` (saved at any mesh)."""
     if kind not in KINDS:
         raise ValueError(f"unknown step kind {kind!r}; one of {KINDS}")
     return dict(kind=kind, model=model, base=base, null=null,
                 batches=list(batches), lr=lr, seed=seed, draws=draws,
                 state=state, record=tuple(record), save_at=save_at,
-                timed=timed)
+                timed=timed, restore=restore)
 
 
 def make_base(base_type: str, model: dict, params=None, memory=None) -> dict:
@@ -274,6 +278,19 @@ def snapshot(model, opt, mem, generator) -> dict:
             "generator": generator.get_state()}
 
 
+def _whole_snapshot(step, mem, generator) -> dict:
+    """``snapshot``'s whole state of an sp- or tp-sharded TGN step: the
+    memory's row blocks and the tp shards, their gradients and Adam
+    moments gathered (every rank calls it)."""
+    blob = checkpoint.to_cpu(step.state_dict(mem, generator, grads=True))
+    return {"params": {k: v.clone() for k, v in blob["params"].items()},
+            "grads": {k: None if g is None else g.clone()
+                      for k, g in blob["grads"].items()},
+            "opt_state": copy.deepcopy(blob["opt_state"]),
+            "memory": {k: v.clone() for k, v in blob["memory"].items()},
+            "generator": blob["generator"]}
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -320,6 +337,17 @@ def _replay_run(spec, i, run, dev, mesh=None, ckpt_dir=None) -> dict:
             place(gen)
         else:
             mem = place(mem, gen)
+    if run.get("restore"):
+        ckpt, at = run["restore"]
+        blob = checkpoint.restore_sharded(ckpt, at,
+                                          step.state_dict(mem, gen))
+        mem = step.load_state_dict(blob, gen)
+    whole = mesh is not None and step.sharded
+
+    def record():
+        if whole:
+            return _whole_snapshot(step, mem, gen)
+        return snapshot(model, opt, mem, gen)
     comm = None if mesh is None else step.comm
     if comm is not None:
         comm.timed = run["timed"]
@@ -328,7 +356,7 @@ def _replay_run(spec, i, run, dev, mesh=None, ckpt_dir=None) -> dict:
         f.launches = 0
     out = dict(loss=[], wall_ms=[], comm=[], states={})
     if 0 in run["record"]:
-        out["states"][0] = snapshot(model, opt, mem, gen)
+        out["states"][0] = record()
     for k, batch in enumerate(run["batches"], start=1):
         size = batch.src.shape[0]
         draws = run["draws"][k - 1] if run["draws"] is not None \
@@ -349,13 +377,18 @@ def _replay_run(spec, i, run, dev, mesh=None, ckpt_dir=None) -> dict:
             out["comm"].append(dict(calls=comm.calls, bytes=comm.bytes,
                                     ms=comm.ms, by_kind=dict(comm.by_kind)))
         if k in run["record"]:
-            out["states"][k] = snapshot(model, opt, mem, gen)
+            out["states"][k] = record()
         if mesh is not None and run["save_at"] == k:
             state = step.state_dict(gen) if explainer \
                 else step.state_dict(mem, gen)
             checkpoint.save_sharded(os.path.join(ckpt_dir, f"run{i}"), state,
                                     k)
     out["launches"] = {name: f.launches for name, f in counters.items()}
+    if whole:
+        out["local"] = dict(shapes=step.local_shapes(mem),
+                            coords=mesh.coords,
+                            memory=mem.memory.cpu().clone(),
+                            msg_buf=mem.msg_buf.cpu().clone())
     return out
 
 
@@ -386,13 +419,13 @@ def replay_plain(spec: dict, dev) -> list:
 
 
 def run_ranks(rank, world, init_method, backend, device, spec_path,
-              out_dir, threads=1):
-    """One rank (``launch``'s target): join the group, replay the spec,
-    write ``out_dir/rank{rank}.pt``."""
+              out_dir, threads=1, mesh=(0, 1, 1)):
+    """One rank (``launch``'s target): join the group, make the ``(dp,
+    sp, tp)`` mesh, replay the spec, write ``out_dir/rank{rank}.pt``."""
     torch.set_num_threads(threads)
     dev = multihost.initialize(backend, init_method, world, rank, device)
     try:
-        res = replay(load_spec(spec_path), M.make_mesh(), dev, out_dir)
+        res = replay(load_spec(spec_path), M.make_mesh(*mesh), dev, out_dir)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
         multihost.sync("replayed")
     finally:
@@ -400,19 +433,24 @@ def run_ranks(rank, world, init_method, backend, device, spec_path,
 
 
 def run_spec(spec: dict, world: int, backend: str, device: str,
-             work: str, threads: int = 1, timeout: float = 600.0) -> list:
-    """Write ``spec`` under ``work``, replay it on ``world`` ranks, and
-    return every rank's results (rank order)."""
+             work: str, threads: int = 1, timeout: float = 600.0,
+             mesh=(0, 1, 1)) -> list:
+    """Write ``spec`` under ``work``, replay it on ``world`` ranks of the
+    ``(dp, sp, tp)`` mesh (dp 0: the rest), and return every rank's
+    results (rank order)."""
     path = os.path.join(work, "spec.pt")
     torch.save(spec, path)
-    launch(run_ranks, world, (backend, device, path, work, threads),
-           timeout)
+    launch(run_ranks, world, (backend, device, path, work, threads,
+                              tuple(mesh)), timeout)
     return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
 def assert_ranks_equal(results) -> None:
-    """Every rank's losses and recorded states bitwise equal rank 0's."""
+    """Every rank's losses and recorded states bitwise equal rank 0's (an
+    sp- or tp-sharded run records the whole state, gathered from each
+    rank's own shards: equal whole states across dp indices hold the
+    replicas of each shard equal)."""
     def same(a, b, where):
         if isinstance(a, dict):
             assert a.keys() == b.keys(), where
@@ -455,10 +493,14 @@ def _tiny_stream(world: int, num_events=256, num_nodes=32, dn=16, de=8,
 
 
 def tiny_spec(world: int, num_events=256, num_nodes=32, dn=16, de=8,
-              seed=0, per_rank=4, n=4) -> dict:
+              seed=0, per_rank=4, n=4, mesh=None) -> dict:
     """The TGN's runs on the tiny stream (``per_rank`` rows a rank, ``n``
     neighbours), two steps each: the training form (dropout 0.1, bf16) and
-    the deterministic form (dropout 0, float32)."""
+    the deterministic form (dropout 0, float32). With ``mesh`` (dp, sp,
+    tp), as the JAX dry run: ``per_rank`` rows a dp index, ``n * sp``
+    neighbours, width ``dn * tp``."""
+    if mesh is not None:
+        world, n, dn = mesh[0], n * mesh[1], dn * mesh[2]
     ev, node, edge, batches = _tiny_stream(world, num_events, num_nodes, dn,
                                            de, seed, per_rank)
     nodes, edges = ev.num_nodes, ev.num_edges
@@ -636,28 +678,31 @@ def main(argv=None) -> int:
     w = args.world
     if backend == "nccl" and args.device is None:
         multihost.rank_device(backend, w - 1)     # a card for every rank
-    print(f"mesh: dp={w} sp=1 tp=1 over {w} ranks ({backend}, {dev.type}; "
-          f"the JAX dry run's factorize({w}) = {M.factorize(w)}: sp and tp "
-          f"wait for the sp/tp design)")
-    spec, walk = tiny_spec(w), tiny_walk_spec(w)
-    spec = dict(spec, runs=spec["runs"] + walk["runs"],
-                node_degree=walk["node_degree"])
-    with tempfile.TemporaryDirectory(prefix="dryrun_") as work:
-        results = run_spec(spec, w, backend, args.device, work)
-    assert_ranks_equal(results)
-    got = results[0]
-    plain = replay_plain(dict(spec, runs=[
-        run for run in spec["runs"] if run["record"]]), dev)
-    train_form, checked = got[0::2], iter(plain)
-    for i, kind in enumerate(KINDS):
-        loss = train_form[i]["loss"][0]
-        assert np.isfinite(loss), (kind, loss)
-        print(f"dryrun_multichip({w}) ok: {kind} loss={loss:.4f}")
-        hold_plain(got[2 * i + 1], next(checked), kind)
-        what = "loss/parameter" + ("/memory" if kind in ("tgn", "enhance")
-                                   else "")
-        print(f"dryrun_multichip({w}) ok: {kind} deterministic {what} "
-              f"parity vs 1-device at 1e-5 (2 steps)")
+    mesh = M.factorize(w)
+    print(f"mesh: dp={mesh[0]} sp={mesh[1]} tp={mesh[2]} over {w} ranks "
+          f"({backend}, {dev.type}) for the TGN; the explainer, TGAT "
+          f"explainer and enhance on dp={w} sp=1 tp=1 (their sp and tp wait "
+          f"for ROADMAP A16d)")
+    for spec, shape, kinds in ((tiny_spec(w, mesh=mesh), mesh, KINDS[:1]),
+                               (tiny_walk_spec(w), (w, 1, 1), KINDS[1:])):
+        with tempfile.TemporaryDirectory(prefix="dryrun_") as work:
+            results = run_spec(spec, w, backend, args.device, work,
+                               mesh=shape)
+        assert_ranks_equal(results)
+        plain = replay_plain(dict(spec, runs=[
+            run for run in spec["runs"] if run["record"]]), dev)
+        got = results[0]
+        for kind, train_form, checked, want in zip(kinds, got[0::2],
+                                                   got[1::2], plain):
+            loss = train_form["loss"][0]
+            assert np.isfinite(loss), (kind, loss)
+            print(f"dryrun_multichip({w}) ok: {kind} loss={loss:.4f} (mesh "
+                  f"{'x'.join(map(str, shape))})")
+            hold_plain(checked, want, kind)
+            what = "loss/parameter" + ("/memory" if kind in ("tgn", "enhance")
+                                       else "")
+            print(f"dryrun_multichip({w}) ok: {kind} deterministic {what} "
+                  f"parity vs 1-device at 1e-5 (2 steps)")
     return 0
 
 

@@ -9,9 +9,9 @@ where ranks share one card. Under ``nccl``, two ranks on one card raise a
 
 The event stream is partitioned by batch position, as in the JAX package:
 every rank computes the same global ``np.random.RandomState(seed)``
-shuffle (as ``train/loops.py::epoch_order``) and keeps only its contiguous
-slice of each global batch (``local_slice``), so no rank reads another's
-events.
+shuffle (as ``train/loops.py::epoch_order``) and keeps only its dp index's
+contiguous slice of each global batch (``local_slice``), so no rank reads
+the events of another dp index.
 """
 from __future__ import annotations
 
@@ -113,9 +113,13 @@ def initialize(backend: str, init_method: Optional[str] = None,
 
 
 def local_slice(batch_size: int, rank: Optional[int] = None,
-                world_size: Optional[int] = None) -> slice:
-    """This rank's contiguous slice of every global [B] batch (the process
-    group's rank and size unless given)."""
+                world_size: Optional[int] = None, mesh=None) -> slice:
+    """This rank's contiguous slice of every global [B] batch: the
+    ``rank``-th of ``world_size`` (the process group's rank and size unless
+    given), or with ``mesh`` its dp index's of ``dp`` (the ranks of one
+    dp index, over sp and tp, hold the same rows)."""
+    if mesh is not None:
+        rank, world_size = mesh.coords[0], mesh.dp
     live = dist.is_available() and dist.is_initialized()
     if world_size is None:
         world_size = dist.get_world_size() if live else 1
@@ -131,20 +135,21 @@ def local_slice(batch_size: int, rank: Optional[int] = None,
 def iter_global_batches(events, batch_size: int, shuffle: bool, seed: int,
                         drop_remainder: bool = True, device=None,
                         rank: Optional[int] = None,
-                        world_size: Optional[int] = None
+                        world_size: Optional[int] = None, mesh=None
                         ) -> Iterator[loops.Batch]:
     """This rank's slices of the epoch's global batches, as tensors on
     ``device`` (the card unless the caller asks for the CPU). With
     ``drop_remainder=False`` a short final chunk is padded with event 0 and
     ``mask=False`` (the step routes those rows to the padding node). The
-    slices of all ranks, concatenated in rank order, are the JAX package's
-    global batches."""
+    slices of all dp indices, concatenated in order, are the JAX package's
+    global batches (``rank``, ``world_size`` and ``mesh`` as in
+    ``local_slice``)."""
     dev = resolve_device(device)
     n = len(events)
     idx = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)
-    sl = local_slice(batch_size, rank, world_size)
+    sl = local_slice(batch_size, rank, world_size, mesh)
 
     def local(x):
         return torch.from_numpy(np.ascontiguousarray(x[sl])).to(dev)

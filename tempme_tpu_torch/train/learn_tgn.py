@@ -35,7 +35,7 @@ from ..data.events import (RandEdgeSampler, compute_time_statistics,
                            load_dataset)
 from ..data.graph import build_temporal_graph
 from ..models.common import Features
-from ..models.tgn import TGN, TGNMemoryState, init_memory_state
+from ..models.tgn import WHOLE, TGN, TGNMemoryState, init_memory_state
 from ..utils import debug
 from ..utils import metrics as M
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -48,13 +48,14 @@ StepDraws = loops.StepDraws   # dropout: per side (src, tgt, bgd)
 
 
 def sample_tgn_support(model, g, batch: loops.Batch, dst_table, n: int,
-                       draws: loops.SupportDraws):
+                       draws: loops.SupportDraws, columns=None):
     """The negatives and the three 2-hop supports cut at the batch time
     (as the JAX step's ``use_eidx=False``); a TGN that reads no support
-    gets the negatives and None for each support."""
+    gets the negatives and None for each support. ``columns`` as in
+    ``find_k_hop``."""
     if model.reads_support:
         return loops.sample_support(g, batch, dst_table, model.n_layers, n,
-                                    draws, use_eidx=False)
+                                    draws, use_eidx=False, columns=columns)
     return (dst_table[draws.neg_idx],) + (None,) * 3
 
 
@@ -85,16 +86,19 @@ class TGNTrainStep:
         return StepDraws(support, dropout)
 
     def contrast(self, mem, batch: loops.Batch, draws: StepDraws,
-                 exchange=None):
+                 exchange=None, shard=WHOLE):
         """The step's forward: padded rows masked, the support sampled
         from ``draws``, the training-form contrast. Returns ((pos, neg),
-        new_mem); ``exchange`` as in ``TGN.get_node_emb``."""
+        new_mem); ``exchange`` and ``shard`` as in ``TGN.get_node_emb``
+        (the deeper hops sampled on ``shard``'s columns)."""
         batch = loops.mask_batch_nodes(batch)
         bgd, s_src, s_tgt, s_bgd = sample_tgn_support(
-            self.model, self.g, batch, self.dst_table, self.n, draws.support)
+            self.model, self.g, batch, self.dst_table, self.n, draws.support,
+            columns=None if shard is WHOLE else shard.columns)
         return self.model.contrast(
             self.feats, mem, batch.src, batch.dst, bgd, batch.ts, batch.eidx,
-            s_src, s_tgt, s_bgd, drop=draws.dropout, exchange=exchange)
+            s_src, s_tgt, s_bgd, drop=draws.dropout, exchange=exchange,
+            shard=shard)
 
     @staticmethod
     def loss(pos, neg, mask, count=None):
@@ -105,12 +109,12 @@ class TGNTrainStep:
                 + loops.masked_bce_with_logits(neg, ones * 0, mask, count))
 
     @staticmethod
-    def finish(new_mem, loss, pos, neg):
+    def finish(new_mem, loss, pos, neg, keep=()):
         """The step's results: the memory detached (the next step must not
-        reach back into this step's graph) with padding row 0 cleared, and
-        the aux dict."""
+        reach back into this step's graph) with padding row 0 cleared
+        (``keep`` as in ``loops.scrub_padding_row``), and the aux dict."""
         new_mem = loops.scrub_padding_row(
-            type(new_mem)(*(x.detach() for x in new_mem)))
+            type(new_mem)(*(x.detach() for x in new_mem)), keep)
         return new_mem, {"loss": loss.detach(),
                          "pos": pos.detach().squeeze(-1),
                          "neg": neg.detach().squeeze(-1)}

@@ -148,26 +148,32 @@ def mask_batch_nodes(batch: Batch) -> Batch:
                  mask=m)
 
 
-def scrub_padding_row(mem):
-    """Clear memory row 0 (the padding node) in every field."""
+def scrub_padding_row(mem, keep=()):
+    """Clear memory row 0 (the padding node) in every field but those
+    named in ``keep`` (an sp rank's row blocks that start past it)."""
     out = []
-    for x in mem:
+    for name, x in zip(mem._fields, mem):
         x = x.clone()
-        x[0] = 0
+        if name not in keep:
+            x[0] = 0
         out.append(x)
     return type(mem)(*out)
 
 
 def sample_support(g, batch: Batch, dst_table: torch.Tensor, k: int, n: int,
-                   draws: SupportDraws, use_eidx: bool = True):
+                   draws: SupportDraws, use_eidx: bool = True,
+                   columns=None):
     """Negatives and the three k-hop supports. ``use_eidx=False`` (the base
     models' path) cuts hop 0 at the batch time; ``True`` cuts it at the
-    batch event's own edge."""
+    batch event's own edge. ``columns`` as in ``find_k_hop``."""
     bgd = dst_table[draws.neg_idx]
     eidx = batch.eidx if use_eidx else None
-    sub_src = S.find_k_hop(g, draws.u_src, batch.src, batch.ts, k, n, eids=eidx)
-    sub_tgt = S.find_k_hop(g, draws.u_tgt, batch.dst, batch.ts, k, n, eids=eidx)
-    sub_bgd = S.find_k_hop(g, draws.u_bgd, bgd, batch.ts, k, n)
+    sub_src = S.find_k_hop(g, draws.u_src, batch.src, batch.ts, k, n,
+                           eids=eidx, columns=columns)
+    sub_tgt = S.find_k_hop(g, draws.u_tgt, batch.dst, batch.ts, k, n,
+                           eids=eidx, columns=columns)
+    sub_bgd = S.find_k_hop(g, draws.u_bgd, bgd, batch.ts, k, n,
+                           columns=columns)
     return bgd, sub_src, sub_tgt, sub_bgd
 
 

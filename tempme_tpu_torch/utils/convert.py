@@ -51,6 +51,11 @@ for a TGAT; ``enhance_state_dicts`` splits it. Its meta gives the
 predictor's ``out_dim`` and ``hid_dim``; a GraphMixer base's block count
 is the tree's own (``mixer_blocks``), which may be fewer than the base
 checkpoint's meta says (the JAX loader drops blocks its meta lacks).
+
+On a mesh with a ``tp`` axis the sharded TGN step holds a block of rows of
+the weights that JAX's ``shard_params_tp`` shards (``tp_sharded_names``);
+``tp_shard_state_dict`` cuts a rank's block out of a whole state dict and
+``tp_unshard_state_dict`` joins the blocks again.
 """
 from __future__ import annotations
 
@@ -146,6 +151,61 @@ def mixer_blocks(state_dict: dict) -> int:
     """The number of mixer blocks a GraphMixer ``state_dict`` holds."""
     return len({k.split(".")[1] for k in state_dict
                 if k.startswith("mixers.")})
+
+
+# the port's stacked recurrent weights: flax's per-gate kernels, each
+# [in, hidden], stacked on the torch weight's dim 0
+_GATES = {"memory_updater.weight_ih": 3, "memory_updater.weight_hh": 3,
+          "lstm.weight_ih": 4, "lstm.weight_hh": 4}
+
+
+def tp_sharded_names(shapes: dict, tp: int) -> list:
+    """The port's parameters that JAX's ``shard_params_tp``
+    (``tempme_tpu/parallel/mesh.py``) shards over ``tp``, by name, from
+    ``{name: shape}`` (a ``state_dict``'s): a flax ``Dense`` kernel ``[in,
+    out]`` with ``out % tp == 0`` and ``out >= 2 tp``, the torch weight
+    ``[out, in]`` cut on dim 0; a stacked GRU or LSTM weight is sharded
+    where its gates' kernels are (``out`` a gate's width). Biases and other
+    1-D tensors, a TGAT's ``pos_table`` and the 3-D ``DenseGeneral``
+    kernels of the TGAT explainer's ``self_attn`` stay whole, as in JAX
+    (``pos_table``'s sharded axis there is its last, which the port's TGN
+    steps never meet)."""
+    out = []
+    for name, shape in shapes.items():
+        if tp <= 1 or len(shape) != 2 or "self_attn." in name or \
+                name.endswith("pos_table"):
+            continue
+        gates = next((g for k, g in _GATES.items() if name.endswith(k)), 1)
+        width = shape[0] // gates
+        if width % tp == 0 and width >= 2 * tp:
+            out.append(name)
+    return out
+
+
+def tp_shard_state_dict(state_dict: dict, tp: int, index: int,
+                        names=None) -> dict:
+    """Rank ``index``'s entries of a whole ``state_dict`` (such as
+    ``flax_to_state_dict``'s) on a tp axis of ``tp``: each tensor of
+    ``names`` (default ``tp_sharded_names``) cut to its ``index``-th block
+    of dim-0 rows, every other entry as it is."""
+    if names is None:
+        names = tp_sharded_names({k: tuple(v.shape)
+                                  for k, v in state_dict.items()}, tp)
+    out = dict(state_dict)
+    for k in names:
+        rows = state_dict[k].shape[0] // tp
+        out[k] = state_dict[k][index * rows:(index + 1) * rows]
+    return out
+
+
+def tp_unshard_state_dict(parts, names) -> dict:
+    """The inverse of ``tp_shard_state_dict``: every tp rank's entries (in
+    rank order) -> the whole ``state_dict``, the tensors of ``names``
+    concatenated on dim 0, every other entry rank 0's."""
+    out = dict(parts[0])
+    for k in names:
+        out[k] = torch.cat([p[k] for p in parts])
+    return out
 
 
 class _Reader:

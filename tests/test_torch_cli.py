@@ -67,9 +67,10 @@ def test_unported_commands_exit_non_zero(cmd, names, capsys):
 
 def test_scaling_report_runs_at_world_sizes_1_and_2(tmp_path, monkeypatch):
     """``cli scaling-report`` (gloo ranks on the CPU) writes only where
-    ``--out`` and ``--json_out`` say: the dp meshes of 1 and 2 ranks with
-    each step's collectives a rank by kind, the sp and tp meshes refused
-    with ``make_mesh``'s reason."""
+    ``--out`` and ``--json_out`` say: the meshes of 1 and 2 ranks, each
+    step's collectives a rank by kind the golden's (the TGN's on the sp
+    and tp meshes too), the explainer's refused on the sp and tp meshes
+    for A16d."""
     import json
     from tempme_tpu_torch.parallel.train import GOLDEN_COLLECTIVES
     monkeypatch.chdir(tmp_path)
@@ -79,16 +80,34 @@ def test_scaling_report_runs_at_world_sizes_1_and_2(tmp_path, monkeypatch):
                      str(out), "--json_out", str(js)]) == 0
     assert sorted(p.name for p in tmp_path.iterdir()) == ["out"]
     rows = {r["mesh"]: r for r in json.loads(js.read_text())}
-    assert sorted(rows) == ["1x1x1", "1x1x2", "1x2x1", "2x1x1", "2x2x2",
-                            "4x2x1"]
-    for mesh in ("1x1x2", "1x2x1", "2x2x2", "4x2x1"):
-        assert "sp/tp design" in rows[mesh]["refused"]
+    assert sorted(rows) == ["1x1x1", "1x1x2", "1x2x1", "2x1x1"]
     two = rows["2x1x1"]
     assert two["tgn"]["collectives"] == GOLDEN_COLLECTIVES["tgn"]
     assert two["explainer"]["collectives"] == GOLDEN_COLLECTIVES["explainer"]
     assert rows["1x1x1"]["explainer"]["collectives"]["all_gather"] == 0
     assert two["global_batch"] == 2 * rows["1x1x1"]["global_batch"] == 16
+    for mesh, kind in (("1x2x1", "tgn-sp"), ("1x1x2", "tgn-tp")):
+        assert rows[mesh]["tgn"]["collectives"] == GOLDEN_COLLECTIVES[kind]
+        assert "A16d" in rows[mesh]["explainer"]["refused"]
+    assert rows["1x2x1"]["n_degree"] == 2 * rows["1x1x2"]["n_degree"] == 8
     assert "NOT a hardware number" in out.read_text()
+
+
+@pytest.mark.parametrize("mesh,kind", [((4, 2, 1), "tgn-dp-sp"),
+                                       ((2, 2, 2), "tgn-dp-sp-tp")],
+                         ids=["4x2x1", "2x2x2"])
+def test_scaling_report_measures_the_8_rank_meshes(mesh, kind):
+    """The JAX tool's two meshes of 8 ranks (``scaling_report.measure`` at
+    the command's defaults: 8 rows a dp index, 4 sp neighbours): the TGN
+    step's collectives a rank the golden's, the explainer's refused for
+    A16d."""
+    from tempme_tpu_torch.parallel.train import GOLDEN_COLLECTIVES
+    from tempme_tpu_torch.tools import scaling_report
+    row = scaling_report.measure(mesh, 8, 4)
+    assert row["tgn"]["collectives"] == GOLDEN_COLLECTIVES[kind]
+    assert "A16d" in row["explainer"]["refused"]
+    assert (row["global_batch"], row["n_degree"]) == (8 * mesh[0],
+                                                      4 * mesh[1])
 
 
 def test_pipeline_runs_every_stage(workdir, tmp_path,  # noqa: F811

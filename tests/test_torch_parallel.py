@@ -5,9 +5,11 @@ package, and the data-parallel step on one process; no process is launched
 ``factorize`` and ``local_slice`` equal JAX's; the ranks' slices of
 ``iter_global_batches``, concatenated in rank order, equal the JAX
 package's global batches (one process, a dp mesh of the virtual CPU
-devices), exactly; ``sp`` or ``tp`` above 1 and nccl on a shared card
-raise. On one process the sharded step equals ``TGNTrainStep`` bit for bit
-(no collective runs), padded rows and dropout included. Each sharded step
+devices), exactly; the explainer's and enhance's steps refuse ``sp`` or
+``tp`` above 1, the TGN step a neighbour count that ``sp`` does not
+divide, and nccl a shared card. On one process the sharded step equals
+``TGNTrainStep`` bit for bit (no collective runs), padded rows and dropout
+included. Each sharded step
 (TGN, explainer, TGAT explainer, enhance) makes the committed golden's
 collectives by kind (``utils/debug.py::count_collectives``) on a stand-in
 process group of 2 that runs in this process; a drifted golden raises.
@@ -70,10 +72,27 @@ def test_iter_global_batches_concatenate_to_jax(drop_remainder):
     assert not np.asarray(ref[-1].mask).all() or drop_remainder
 
 
-@pytest.mark.parametrize("sp,tp", [(2, 1), (1, 2), (2, 2)])
-def test_sp_and_tp_raise(sp, tp):
-    with pytest.raises(ValueError, match="A16"):
-        M.make_mesh(0, sp, tp)
+@pytest.mark.parametrize("kind,sp,tp", [
+    ("explainer", 2, 1), ("explainer", 1, 2), ("enhance", 2, 1),
+    ("enhance", 2, 2)])
+def test_sp_and_tp_raise(kind, sp, tp):
+    """The explainer's and enhance's sharded steps refuse sp or tp above
+    1 (their sp and tp wait for A16d); the mesh itself takes them."""
+    from tempme_tpu_torch.parallel import dryrun as D
+    walk = D.tiny_walk_spec(1)
+    run = next(r for r in walk["runs"] if r["kind"] == kind)
+    built = D._build(walk, run, "cpu")
+    with pytest.raises(ValueError, match="A16d"):
+        built["step"](M.Mesh(1, sp, tp, 0, group=object()))
+    assert M.Mesh(1, sp, tp, 0).shape == {"dp": 1, "sp": sp, "tp": tp}
+
+
+def test_tgn_step_refuses_n_not_divisible_by_sp():
+    """The sp axis cuts each hop's n neighbours into contiguous chunks."""
+    ev, step = _setup(0.0)
+    with pytest.raises(ValueError, match="not divisible by sp=2"):
+        step(lambda *a: P.make_sharded_tgn_train_step(
+            *a, M.Mesh(1, 2, 1, 0, group=object())))
 
 
 def test_mesh_without_a_group_is_one_process():
